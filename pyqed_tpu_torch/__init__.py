@@ -1,0 +1,16 @@
+"""pyqed_tpu_torch — the PyTorch/CUDA port of pyqed_tpu.
+
+Ported so far: the HEOM main path (``HEOMSolver``, ``DrudeBath``, the
+``FMO`` model, ``Result``, ``units``), with the HEOM coupling as a
+hand-written CUDA kernel for Hopper (``ops/kernels.py``,
+``csrc/heom_coupling.cu``). The package imports torch, NumPy and SciPy,
+never JAX or ``pyqed_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+from . import units
+from .core.result import Result, load_result
+from .models.named import FMO
+from .open.bath import DrudeBath
+from .open.heom import HEOMSolver, solver_from_reference

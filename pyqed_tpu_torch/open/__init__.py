@@ -1,0 +1,4 @@
+from .bath import DrudeBath, OhmicBath, Env, pade_poles_bose, bose, \
+    bath_correlation_from_spectral_density, prony_decomposition
+from .heom import (HEOMSolver, HEOMSolverDrude, enumerate_hierarchy,
+                   neighbor_maps, solver_from_reference)

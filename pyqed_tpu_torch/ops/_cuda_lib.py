@@ -1,0 +1,99 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
+under ``pyqed_tpu_torch/build/`` and loaded with :mod:`ctypes`; nothing
+is built when a module is imported. The library's file name carries a
+hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused. ``nvcc`` is looked up in ``$CUDA_HOME/bin``,
+then on ``PATH``, then in ``/usr/local/cuda/bin``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# exported C functions of each source: name -> argtypes (restype is int,
+# the cudaError_t of the launch)
+SIGNATURES = {
+    "heom_coupling": {
+        "heom_coupling_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "heom_coupling_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    log: str           # nvcc's output, including the -Xptxas -v report
+    seconds: float     # compile time; 0.0 when a cached build was loaded
+
+
+def nvcc_path() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: the CUDA kernels of pyqed_tpu_torch "
+                       "are compiled at first use and need the CUDA toolkit")
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` if needed and load it (once per process)."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD / f"lib{name}-{digest}.so"
+    log_path = so.with_suffix(".log")
+    seconds = 0.0
+    if not so.is_file():
+        nvcc = nvcc_path()
+        BUILD.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            seconds = time.perf_counter() - t0
+            log_path.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, so)       # atomic: concurrent builders agree
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    log = log_path.read_text() if log_path.is_file() else ""
+    return Built(lib=lib, path=so, log=log, seconds=seconds)

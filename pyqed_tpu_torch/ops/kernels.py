@@ -1,0 +1,442 @@
+"""HEOM right-hand-side operators and the hand-written coupling kernel.
+
+PyTorch counterpart of the HEOM half of ``pyqed_tpu/ops/pallas_kernels.py``
+(reference semantics: pyqed/heom/deom.py:641-673 ``rem_cal``). With
+row-major vec(), left(A) = A ⊗ I and right(A) = I ⊗ Aᵀ act on vec(ρ), and
+the HEOM right-hand side of ADO ρ_N is
+
+    vec(ρ_N) C − damp_N vec(ρ_N)
+      + Σ_m vec(ρ_{N+e_m}) P_mᵀ + Σ_m n_m vec(ρ_{N−e_m}) D_mᵀ
+
+with C = (−i(left(H) − right(H)))ᵀ, P_m = −i left(Q_m) + i right(Q_m) and
+D_m = −i c_m left(Q_m) + i c_m* right(Q_m).
+
+Contents:
+
+- host builders (NumPy): :func:`heom_superop_matrix`,
+  :func:`heom_superop_split`, :func:`heom_q_projector_sites`,
+  :func:`heom_level_structure`, :func:`heom_level_blocks`,
+  :func:`heom_coupling_operands`;
+- torch right-hand sides: :func:`heom_rhs_dot` (``matmul``),
+  :func:`heom_rhs_rowcol_factory` (``rowcol``),
+  :func:`heom_rhs_levels_xla_factory` (``levels``) and
+  :func:`heom_rhs_coupling_factory` (``cuda``);
+- the coupling kernel: its wrapper :func:`heom_coupling` and two plain
+  versions, :func:`level_coupling` (the level-blocked form of the TPU
+  kernel) and :func:`heom_coupling_ref` (the index form the CUDA kernel
+  computes).
+
+The TPU workarounds of the JAX module are not carried over: operands stay
+complex (no real/imag planes), and nothing is padded to 8 rows or 128
+lanes. The hierarchy enumeration is level-graded, so without padding the
+level layout is the compact ``(nado, n·n)`` layout itself.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import real_dtype_of
+
+
+def to_tensor(a, dtype, device):
+    """A host (NumPy) operand as a contiguous tensor on ``device``."""
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+def damp_tensor(damp, dtype, device):
+    """(nado,) damping rates: real unless a bath rate is complex."""
+    damp = np.asarray(damp)
+    if np.iscomplexobj(damp) and np.any(damp.imag != 0):
+        return to_tensor(damp, dtype, device)
+    return to_tensor(np.real(damp), real_dtype_of(dtype), device)
+
+
+# =====================================================================
+# host builders
+# =====================================================================
+
+def heom_superop_matrix(H, Q, c):
+    """Stacked HEOM superoperator B = [C | P_0 … P_{M−1} | D_0 … D_{M−1}]
+    of shape (V, (2M+1)V), with C = −i(left(H) − right(H)) (NumPy)."""
+    H = np.asarray(H)
+    Q = np.asarray(Q)
+    c = np.asarray(c)
+    n = H.shape[-1]
+    eye = np.eye(n)
+    left = lambda a: np.kron(a, eye)
+    right = lambda a: np.kron(eye, a.T)
+    blocks = [-1j * (left(H) - right(H))]
+    for m in range(Q.shape[0]):
+        blocks.append(-1j * left(Q[m]) + 1j * right(Q[m]))
+    for m in range(Q.shape[0]):
+        blocks.append(-1j * c[m] * left(Q[m])
+                      + 1j * np.conj(c[m]) * right(Q[m]))
+    return np.concatenate(blocks, axis=1)
+
+
+def heom_superop_split(H, Q, c):
+    """(B0, Bk) blocks of :func:`heom_superop_matrix`: B0 = C (V, V) acts
+    on the ADO itself, Bk (V, 2M, V) on the [plus; minus] neighbours."""
+    B = heom_superop_matrix(H, Q, c)
+    V = B.shape[0]
+    return B[:, :V].copy(), B[:, V:].reshape(V, -1, V).copy()
+
+
+def heom_q_projector_sites(Q, tol=0.0):
+    """Sites s(m) if every coupling operator Q_m is a site projector
+    e_s e_sᵀ, else None."""
+    Q = np.asarray(Q)
+    sites = np.empty(Q.shape[0], np.int32)
+    for m, q in enumerate(Q):
+        s = int(np.argmax(np.abs(np.diagonal(q))))
+        e = np.zeros_like(q)
+        e[s, s] = 1.0
+        if not np.allclose(q, e, atol=tol if tol else 1e-14):
+            return None
+        sites[m] = s
+    return sites
+
+
+def heom_level_structure(keys):
+    """(sizes, offs): ADO count and first row of each hierarchy level.
+    The keys must be level-graded, as :func:`enumerate_hierarchy`
+    returns them."""
+    levels = np.asarray(keys).sum(axis=1)
+    if not np.all(np.diff(levels) >= 0):
+        raise ValueError("hierarchy keys must be level-graded")
+    sizes = [int((levels == l).sum()) for l in range(int(levels.max()) + 1)]
+    offs = [0] + [int(o) for o in np.cumsum(sizes)[:-1]]
+    return sizes, offs
+
+
+def heom_level_blocks(H, Q, c, keys, plus_idx, minus_idx):
+    """Level-blocked operands of the coupling (NumPy, unpadded).
+
+    Returns a dict with
+      C      (V, V) complex     — (−i(left(H) − right(H)))ᵀ
+      Pt     (M, V, V) complex  — P_mᵀ
+      Dt     (M, V, V) complex  — D_mᵀ (c_m folded in)
+      Splus  for l = 0..L−1, (M, n_l, n_{l+1}) one-hot selections
+      Sminus for l = 1..L,   (M, n_l, n_{l−1}) selections weighted n_m
+      structure (sizes, offs), V, M.
+    """
+    H = np.asarray(H)
+    Q = np.asarray(Q)
+    c = np.asarray(c)
+    keys = np.asarray(keys)
+    nado = keys.shape[0]
+    n = H.shape[-1]
+    M = Q.shape[0]
+    eye = np.eye(n)
+    left = lambda a: np.kron(a, eye)
+    right = lambda a: np.kron(eye, a.T)
+    C = (-1j * (left(H) - right(H))).T
+    Pt = np.stack([(-1j * left(Q[m]) + 1j * right(Q[m])).T
+                   for m in range(M)])
+    Dt = np.stack([(-1j * c[m] * left(Q[m])
+                    + 1j * np.conj(c[m]) * right(Q[m])).T
+                   for m in range(M)])
+    sizes, offs = heom_level_structure(keys)
+    L = len(sizes) - 1
+    Splus, Sminus = [], []
+    for l in range(L):                  # dest level l, src level l+1
+        S = np.zeros((M, sizes[l], sizes[l + 1]))
+        rows = np.arange(offs[l], offs[l] + sizes[l])
+        for m in range(M):
+            j = plus_idx[rows, m]
+            ok = j < nado
+            S[m, rows[ok] - offs[l], j[ok] - offs[l + 1]] = 1.0
+        Splus.append(S)
+    for l in range(1, L + 1):           # dest level l, src level l-1
+        S = np.zeros((M, sizes[l], sizes[l - 1]))
+        rows = np.arange(offs[l], offs[l] + sizes[l])
+        for m in range(M):
+            j = minus_idx[rows, m]
+            ok = (j < nado) & (keys[rows, m] > 0)
+            S[m, rows[ok] - offs[l], j[ok] - offs[l - 1]] = keys[rows[ok], m]
+        Sminus.append(S)
+    return dict(C=C, Pt=Pt, Dt=Dt, Splus=Splus, Sminus=Sminus,
+                structure=(sizes, offs), V=n * n, M=M)
+
+
+def heom_coupling_operands(H, Q, c, keys, plus_idx, minus_idx):
+    """Operands of the index-form coupling (NumPy).
+
+    Returns (C, OpT, nbr, w):
+      C   (V, V) complex        — local superoperator, row convention
+      OpT (2M, V, V) complex    — [P_0ᵀ … P_{M−1}ᵀ ; D_0ᵀ … D_{M−1}ᵀ]
+      nbr (nado, 2M) int32      — [plus_idx | minus_idx], −1 for none
+      w   (nado, 2M) float64    — 1 on the plus side, n_m on the minus side
+    """
+    keys = np.asarray(keys)
+    nado = keys.shape[0]
+    B0, Bk = heom_superop_split(H, Q, c)
+    nbr = np.concatenate([plus_idx, minus_idx], axis=1).astype(np.int32)
+    nbr[nbr >= nado] = -1
+    w = np.concatenate([np.ones_like(keys), keys], axis=1).astype(np.float64)
+    return B0.T.copy(), Bk.transpose(1, 2, 0).copy(), nbr, w
+
+
+# =====================================================================
+# torch right-hand sides
+# =====================================================================
+
+def heom_rhs_dot(B0, Bk, damp, flat, g):
+    """Stacked-superoperator RHS on the gathered neighbour stack:
+    out[N, a] = Σ_b B0[a, b] flat[N, b] + Σ_{k,b} Bk[a, k, b] g[N, k, b]
+    − damp[N] flat[N, a]."""
+    out = torch.einsum("Nb, ab -> Na", flat, B0)
+    out = out + torch.einsum("Nkb, akb -> Na", g, Bk)
+    return out - damp[:, None] * flat
+
+
+def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
+                            dtype=torch.complex128, device="cpu"):
+    """Row/column HEOM RHS for site-projector couplings Q_m = e_s e_sᵀ.
+
+    left(Q_m) touches only row s and right(Q_m) only column s, so the
+    coupling gathers one row and one column of each neighbour ADO
+    instead of its whole (n, n) plane:
+
+        out_N += −i Σ_m [ρ_{N+m}[s, :] + n_m c_m ρ_{N−m}[s, :]]   at row s
+        out_N += +i Σ_m [ρ_{N+m}[:, s] + n_m c_m* ρ_{N−m}[:, s]]  at col s
+
+    plus −i[H, ρ_N] − damp_N ρ_N. Returns ``rhs(ados (nado, n, n))``.
+    """
+    sites = heom_q_projector_sites(Q)
+    if sites is None:
+        raise ValueError("rowcol kernel needs site-projector couplings")
+    H = np.asarray(H)
+    keys = np.asarray(keys)
+    nado, M = keys.shape
+    n = H.shape[0]
+    s_list, sidx = np.unique(sites, return_inverse=True)
+    nq = len(s_list)
+    c = np.asarray(c)
+    kf = keys.astype(np.float64)
+    # gather indices into the (nado+1)·nq stacked rows/columns; row nado
+    # of the padded stack is zero and stands for a missing neighbour
+    idx_p = to_tensor((plus_idx * nq + sidx[None, :]).reshape(-1),
+                      torch.long, device)
+    idx_m = to_tensor((minus_idx * nq + sidx[None, :]).reshape(-1),
+                      torch.long, device)
+    s_t = to_tensor(s_list, torch.long, device)
+    E = np.zeros((n, nq))
+    E[s_list, np.arange(nq)] = 1.0          # slot -> row/col position
+    G = np.zeros((M, nq))
+    G[np.arange(M), sidx] = 1.0             # mode -> slot
+    E_t, G_t = to_tensor(E, dtype, device), to_tensor(G, dtype, device)
+    w_row = to_tensor(kf * c[None, :], dtype, device)[..., None]
+    w_col = to_tensor(kf * np.conj(c)[None, :], dtype, device)[..., None]
+    H_t = to_tensor(H, dtype, device)
+    damp = damp_tensor(keys.astype(np.complex128) @ np.asarray(
+        nu, np.complex128), dtype, device)
+
+    def rhs(ados):
+        padded = torch.cat([ados, ados.new_zeros((1, n, n))])
+        rows = padded[:, s_t, :].reshape((nado + 1) * nq, n)
+        cols = padded[:, :, s_t].transpose(1, 2).reshape((nado + 1) * nq, n)
+        gp_r = rows[idx_p].reshape(nado, M, n)
+        gm_r = rows[idx_m].reshape(nado, M, n)
+        gp_c = cols[idx_p].reshape(nado, M, n)
+        gm_c = cols[idx_m].reshape(nado, M, n)
+        row_acc = torch.einsum("Nmx, mq -> Nqx", gp_r + w_row * gm_r, G_t)
+        col_acc = torch.einsum("Nmx, mq -> Nqx", gp_c + w_col * gm_c, G_t)
+        out = -1j * (torch.einsum("aq, Nqx -> Nax", E_t, row_acc)
+                     - torch.einsum("xq, Nqa -> Nax", E_t, col_acc))
+        out = out - 1j * (H_t @ ados - ados @ H_t)
+        return out - damp[:, None, None] * ados
+
+    return rhs
+
+
+def heom_rhs_levels_xla_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
+                                dtype=torch.complex128, device="cpu"):
+    """Order-aware level-blocked HEOM RHS in plain torch (the name is the
+    JAX package's, where this form runs through XLA).
+
+    Each (direction, level) pair contracts in the FLOP-optimal order:
+    plus (source level l+1 larger than destination l) selects first,
+    Y = S_fold @ F_{l+1}, then Σ_k Y_k @ P_kᵀ; minus (source smaller)
+    transforms first, Z_k = F_{l−1} @ D_kᵀ, then Σ_k S_k @ Z_k.
+
+    Unlike the JAX form, which keeps only Re(keys @ nu), complex bath
+    rates enter the damping in full. Returns ``rhs(ados (nado, n, n))``.
+    """
+    blocks = heom_level_blocks(H, Q, c, keys, plus_idx, minus_idx)
+    sizes, offs = blocks["structure"]
+    V, M = blocks["V"], blocks["M"]
+    n = int(round(np.sqrt(V)))
+    L = len(sizes) - 1
+    keys = np.asarray(keys)
+    nado = keys.shape[0]
+    C = to_tensor(blocks["C"], dtype, device)
+    Pt = to_tensor(blocks["Pt"], dtype, device)
+    Dt = to_tensor(blocks["Dt"], dtype, device)
+    damp = damp_tensor(keys @ np.asarray(nu), dtype, device)
+    Spf = [to_tensor(S.reshape(-1, S.shape[-1]), dtype, device)
+           for S in blocks["Splus"]]
+    Smb = [to_tensor(S, dtype, device) for S in blocks["Sminus"]]
+
+    def rhs(ados):
+        flat = ados.reshape(nado, V)
+        out = flat @ C - damp[:, None] * flat
+        plus = []
+        for l in range(L):                  # dest l, src l+1
+            src = flat[offs[l + 1]:offs[l + 1] + sizes[l + 1]]
+            y = (Spf[l] @ src).reshape(M, sizes[l], V)
+            plus.append(torch.einsum("kdv, kvw -> dw", y, Pt))
+        plus.append(flat.new_zeros((sizes[L], V)))
+        minus = [flat.new_zeros((sizes[0], V))]
+        for l in range(1, L + 1):           # dest l, src l-1
+            src = flat[offs[l - 1]:offs[l - 1] + sizes[l - 1]]
+            z = torch.einsum("sv, kvw -> ksw", src, Dt)
+            minus.append(torch.einsum("kds, ksw -> dw", Smb[l - 1], z))
+        out = out + torch.cat(plus) + torch.cat(minus)
+        return out.reshape(nado, n, n)
+
+    return rhs
+
+
+# =====================================================================
+# the coupling kernel
+# =====================================================================
+
+def level_coupling(S, OpT, F_src, select_first=False):
+    """Plain version of the TPU kernel's unit of work
+    (``pallas_kernels._level_coupling_call``) for one (direction,
+    destination level), with dense selections:
+
+      select_first=False:  out = Σ_k S_k @ (F_src @ OpT_k)
+      select_first=True:   out = Σ_k (S_k @ F_src) @ OpT_k
+
+    S (M, n_dest, n_src) real, OpT (M, V, V) complex, F_src (n_src, V)
+    complex; returns (n_dest, V)."""
+    S = S.to(F_src.dtype)
+    if select_first:
+        y = torch.einsum("kds, sv -> kdv", S, F_src)
+        return torch.einsum("kdv, kvw -> dw", y, OpT)
+    z = torch.einsum("sv, kvw -> ksw", F_src, OpT)
+    return torch.einsum("kds, ksw -> dw", S, z)
+
+
+def heom_coupling_ref(F, nbr, w, OpT):
+    """Plain version of :func:`heom_coupling`: gather, weight, contract.
+
+    out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j]; a −1 in ``nbr`` picks the
+    zero row appended to F."""
+    padded = torch.cat([F, F.new_zeros((1, F.shape[1]))])
+    g = padded[nbr.long()] * w[..., None]           # (nado, nj, V)
+    return torch.einsum("dja, jab -> db", g, OpT)
+
+
+_KERNEL_DTYPES = {torch.complex128: torch.float64,
+                  torch.complex64: torch.float32}
+
+
+def _check_coupling_args(F, nbr, w, OpT):
+    if F.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"heom_coupling: F must be complex128 or complex64, "
+                        f"got {F.dtype}")
+    if OpT.dtype != F.dtype:
+        raise TypeError(f"heom_coupling: OpT is {OpT.dtype}, F is {F.dtype}")
+    if w.dtype != _KERNEL_DTYPES[F.dtype]:
+        raise TypeError(f"heom_coupling: w must be {_KERNEL_DTYPES[F.dtype]},"
+                        f" got {w.dtype}")
+    if nbr.dtype != torch.int32:
+        raise TypeError(f"heom_coupling: nbr must be int32, got {nbr.dtype}")
+    if F.dim() != 2 or OpT.dim() != 3 or nbr.dim() != 2:
+        raise ValueError("heom_coupling: expected F (nado, V), nbr "
+                         "(nado, nj), w (nado, nj), OpT (nj, V, V)")
+    nado, V = F.shape
+    nj = OpT.shape[0]
+    if (tuple(OpT.shape) != (nj, V, V) or tuple(nbr.shape) != (nado, nj)
+            or tuple(w.shape) != (nado, nj)):
+        raise ValueError(
+            f"heom_coupling: shapes F {tuple(F.shape)}, nbr "
+            f"{tuple(nbr.shape)}, w {tuple(w.shape)}, OpT "
+            f"{tuple(OpT.shape)} do not agree")
+    for name, x in (("F", F), ("nbr", nbr), ("w", w), ("OpT", OpT)):
+        if x.device != F.device:
+            raise ValueError(f"heom_coupling: {name} is on {x.device}, "
+                             f"F on {F.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"heom_coupling: {name} must be contiguous")
+
+
+def heom_coupling(F, nbr, w, OpT):
+    """HEOM coupling term, out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j].
+
+    Replaces the level-blocked Pallas kernel of the JAX package
+    (``pyqed_tpu/ops/pallas_kernels.py:681-769``). That kernel multiplies
+    one-hot selection matrices because a TPU gathers poorly; each of their
+    rows has one nonzero at most, so on a GPU the selection is a row
+    gather, and one launch of ``csrc/heom_coupling.cu`` covers every level
+    and both directions with one V×V complex row product per hierarchy
+    edge. At the FMO flagship (680 ADOs, M = 14, V = 49) that is 3,360
+    edges × 2,401 complex MACs ≈ 65 MFLOP over 1.1 MB of operators that
+    stay in L2; the kernel is bound by the latency of its L2 reads (the
+    design notes and measured times are in the source and in PERF.md).
+
+    F (nado, V) complex128/complex64, nbr (nado, nj) int32 (−1: no
+    neighbour), w (nado, nj) real of F's precision, OpT (nj, V, V) of F's
+    dtype, all contiguous and on one device. On the CPU this is
+    :func:`heom_coupling_ref`; on CUDA it launches the kernel (counted in
+    ``heom_coupling.launches``) or raises.
+    """
+    _check_coupling_args(F, nbr, w, OpT)
+    if F.device.type == "cpu":
+        return heom_coupling_ref(F, nbr, w, OpT)
+    if F.device.type != "cuda":
+        raise ValueError(f"heom_coupling: no kernel for device {F.device}")
+    from . import _cuda_lib
+    lib = _cuda_lib.load("heom_coupling").lib
+    fn = (lib.heom_coupling_c128 if F.dtype == torch.complex128
+          else lib.heom_coupling_c64)
+    nado, V = F.shape
+    out = torch.empty_like(F)
+    if nado == 0:
+        return out
+    with torch.cuda.device(F.device):
+        err = fn(F.data_ptr(), nbr.data_ptr(), w.data_ptr(), OpT.data_ptr(),
+                 out.data_ptr(), nado, OpT.shape[0], V,
+                 torch.cuda.current_stream(F.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"heom_coupling: kernel launch failed with CUDA "
+                           f"error {err}")
+    heom_coupling.launches += 1
+    return out
+
+
+heom_coupling.launches = 0
+
+
+def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
+                              dtype=torch.complex128, device="cpu"):
+    """HEOM RHS through :func:`heom_coupling` (kernel name ``cuda``; the
+    counterpart of the JAX package's ``heom_rhs_levels_factory``). The
+    local term flat @ C − damp·flat stays a torch matmul, outside the
+    kernel as it was outside the Pallas call. Returns
+    ``rhs(ados (nado, n, n))``."""
+    keys = np.asarray(keys)
+    nado = keys.shape[0]
+    n = np.asarray(H).shape[-1]
+    V = n * n
+    C, OpT, nbr, w = heom_coupling_operands(H, Q, c, keys, plus_idx,
+                                            minus_idx)
+    C_t = to_tensor(C, dtype, device)
+    OpT_t = to_tensor(OpT, dtype, device)
+    nbr_t = to_tensor(nbr, torch.int32, device)
+    w_t = to_tensor(w, real_dtype_of(dtype), device)
+    # complex column: addcmul_ below needs the operands' dtype
+    damp = to_tensor((keys @ np.asarray(nu))[:, None], dtype, device)
+
+    def rhs(ados):
+        flat = ados.reshape(nado, V)
+        out = heom_coupling(flat, nbr_t, w_t, OpT_t)
+        out.addmm_(flat, C_t)
+        out.addcmul_(damp, flat, value=-1)
+        return out.reshape(nado, n, n)
+
+    return rhs

@@ -1,0 +1,301 @@
+"""Parity of the PyTorch port's HEOM operators (pyqed_tpu_torch/ops) with
+the JAX package's (pyqed_tpu/ops/pallas_kernels.py), on the CPU at
+complex128.
+
+The same inputs, made with numpy from a seed, go through the JAX function
+(Pallas kernels in interpret mode) and the port's counterpart; the two are
+compared as numpy arrays at rel 1e-12, the gate of tests/test_pallas.py.
+The CUDA kernel itself runs only on a GPU (chip_smoke.py); here its
+wrapper takes the plain version because the tensors lie on the CPU.
+"""
+import re
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pyqed_tpu.ops import pallas_kernels as pk
+from pyqed_tpu.open.heom import enumerate_hierarchy as j_enum
+from pyqed_tpu.open.heom import neighbor_maps as j_nbr
+from pyqed_tpu_torch.ops import kernels as kn
+from pyqed_tpu_torch.ops import _cuda_lib
+
+RTOL = 1e-12     # f64 parity gate of the HEOM right-hand sides
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def crand(rng, *shape):
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+def rel_err(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.max(np.abs(a - b)) / np.max(np.abs(b))
+
+
+def hierarchy(M=3, lmax=3, n=3, seed=7, projectors=False):
+    """Random Hermitian H, couplings (dense or site projectors), complex
+    c and real rates on an (M, lmax) hierarchy."""
+    rng = np.random.default_rng(seed)
+    keys, index = j_enum(M, lmax)
+    plus_idx, minus_idx = j_nbr(keys, index)
+    H = rng.standard_normal((n, n))
+    H = H + H.T
+    if projectors:
+        Q = np.stack([np.diag(np.eye(n)[m % n]) for m in range(M)])
+    else:
+        Q = rng.standard_normal((M, n, n))
+        Q = Q + np.swapaxes(Q, 1, 2)
+    c = crand(rng, M)
+    nu = rng.uniform(0.5, 2.0, M)
+    return dict(H=H, Q=Q, c=c, nu=nu, keys=np.asarray(keys),
+                plus_idx=np.asarray(plus_idx), minus_idx=np.asarray(minus_idx),
+                rng=rng)
+
+
+def t(a):
+    return torch.as_tensor(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------- (i)
+@pytest.mark.parametrize("direction", ["plus", "minus"])
+def test_level_coupling_matches_pallas_call(direction):
+    """Port level_coupling == pk._level_coupling_call (interpret, f64) on
+    operands from JAX heom_level_blocks, every destination level."""
+    h = hierarchy()
+    blocks = pk.heom_level_blocks(h["H"], h["Q"], h["c"], h["keys"],
+                                  h["plus_idx"], h["minus_idx"])
+    _, _, pad_sizes, _, _, _ = blocks["structure"]
+    Vp = blocks["Vp"]
+    select_first = direction == "plus"
+    Ss = blocks["Splus"] if select_first else blocks["Sminus"]
+    Op = blocks["Pt"] if select_first else blocks["Dt"]
+    Op_split = (np.ascontiguousarray(Op.real), np.ascontiguousarray(Op.imag))
+    rng = h["rng"]
+    for S in Ss:
+        S = np.asarray(S, np.float64)
+        F = crand(rng, S.shape[-1], Vp)
+        gr, gi = pk._level_coupling_call(
+            S, Op_split, jnp.asarray(F.real), jnp.asarray(F.imag), fast=False,
+            interpret=True, select_first=select_first)
+        ref = np.asarray(gr) + 1j * np.asarray(gi)
+        out = kn.level_coupling(t(S), t(Op), t(F), select_first=select_first)
+        assert rel_err(out.numpy(), ref) < RTOL
+
+
+def test_level_coupling_orders_agree():
+    h = hierarchy()
+    blocks = kn.heom_level_blocks(h["H"], h["Q"], h["c"], h["keys"],
+                                  h["plus_idx"], h["minus_idx"])
+    F = crand(h["rng"], blocks["Splus"][0].shape[-1], blocks["V"])
+    a = kn.level_coupling(t(blocks["Splus"][0]), t(blocks["Pt"]), t(F), True)
+    b = kn.level_coupling(t(blocks["Splus"][0]), t(blocks["Pt"]), t(F), False)
+    assert rel_err(a.numpy(), b.numpy()) < RTOL
+
+
+# ---------------------------------------------------------------- (ii)
+def test_superop_builders_match_jax():
+    h = hierarchy()
+    args = (h["H"], h["Q"], h["c"])
+    np.testing.assert_array_equal(kn.heom_superop_matrix(*args),
+                                  pk.heom_superop_matrix(*args))
+    for a, b in zip(kn.heom_superop_split(*args), pk.heom_superop_split(*args)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("projectors", [True, False])
+def test_q_projector_sites_match_jax(projectors):
+    Q = hierarchy(projectors=projectors)["Q"]
+    a, b = kn.heom_q_projector_sites(Q), pk.heom_q_projector_sites(Q)
+    if projectors:
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a is None and b is None
+
+
+@pytest.mark.parametrize("M,lmax", [(3, 3), (4, 2), (2, 5)])
+def test_level_structure_matches_jax_unpadded(M, lmax):
+    keys = hierarchy(M=M, lmax=lmax)["keys"]
+    sizes, offs = kn.heom_level_structure(keys)
+    j_sizes, j_offs, pad_sizes, pad_offs, _, perm = pk.heom_level_structure(keys)
+    assert sizes == list(j_sizes)
+    assert offs == [int(o) for o in j_offs]
+    # the JAX layout pads each level to 8 rows; its perm maps the compact
+    # (port) row of each ADO to its padded row
+    for l in range(len(sizes)):
+        rows = np.arange(offs[l], offs[l] + sizes[l])
+        np.testing.assert_array_equal(perm[rows], pad_offs[l] + rows - offs[l])
+
+
+def test_level_blocks_match_jax_up_to_padding():
+    h = hierarchy()
+    args = (h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"])
+    ours, ref = kn.heom_level_blocks(*args), pk.heom_level_blocks(*args)
+    V = ours["V"]
+    assert V == ref["V"] and ours["M"] == ref["M"]
+    for name in ("C", "Pt", "Dt"):
+        np.testing.assert_array_equal(ours[name], ref[name][..., :V, :V])
+        assert not np.any(ref[name][..., V:, :]) and not np.any(
+            ref[name][..., :, V:])
+    for name in ("Splus", "Sminus"):
+        assert len(ours[name]) == len(ref[name])
+        for a, b in zip(ours[name], ref[name]):
+            np.testing.assert_array_equal(a, b[:, :a.shape[1], :a.shape[2]])
+            assert np.abs(b).sum() == np.abs(a).sum()     # padding is zero
+
+
+# ------------------------------------------------- torch right-hand sides
+def jax_dot_reference(h, ados):
+    """The JAX stacked-superoperator RHS on its own gathered stack."""
+    B0, Bk = pk.heom_superop_split(h["H"], h["Q"], h["c"])
+    keys = h["keys"]
+    nado = keys.shape[0]
+    damp = keys @ h["nu"]
+    all_idx = np.concatenate([h["plus_idx"], h["minus_idx"]], axis=1)
+    wocc = np.concatenate([np.ones_like(keys), keys], axis=1).astype(float)
+    flat = ados.reshape(nado, -1)
+    padded = np.concatenate([flat, np.zeros((1, flat.shape[1]), complex)])
+    g = padded[all_idx] * wocc[:, :, None]
+    out = pk.heom_rhs_dot(jnp.asarray(B0), jnp.asarray(Bk), jnp.asarray(damp),
+                          jnp.asarray(flat), jnp.asarray(g))
+    return np.asarray(out), (B0, Bk, damp, flat, g)
+
+
+def test_rhs_dot_matches_jax():
+    h = hierarchy()
+    n = h["H"].shape[0]
+    ados = crand(h["rng"], h["keys"].shape[0], n, n)
+    ref, (B0, Bk, damp, flat, g) = jax_dot_reference(h, ados)
+    out = kn.heom_rhs_dot(t(B0), t(Bk), t(damp), t(flat), t(g))
+    assert rel_err(out.numpy(), ref) < RTOL
+
+
+def test_coupling_index_form_matches_jax():
+    """flat @ C − damp·flat + heom_coupling_ref == the JAX stacked RHS."""
+    h = hierarchy()
+    n = h["H"].shape[0]
+    ados = crand(h["rng"], h["keys"].shape[0], n, n)
+    ref, (_, _, damp, flat, _) = jax_dot_reference(h, ados)
+    C, OpT, nbr, w = kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"])
+    F = t(flat)
+    out = F @ t(C) - t(damp)[:, None] * F + kn.heom_coupling_ref(
+        F, t(nbr), t(w), t(OpT))
+    assert rel_err(out.numpy(), ref) < RTOL
+
+
+def test_rowcol_factory_matches_jax():
+    h = hierarchy(projectors=True)
+    args = (h["H"], h["Q"], h["c"], h["nu"], h["keys"], h["plus_idx"],
+            h["minus_idx"])
+    n = h["H"].shape[0]
+    ados = crand(h["rng"], h["keys"].shape[0], n, n)
+    ref = np.asarray(pk.heom_rhs_rowcol_factory(*args, dtype=np.float64)(
+        jnp.asarray(ados)))
+    out = kn.heom_rhs_rowcol_factory(*args)(t(ados))
+    assert rel_err(out.numpy(), ref) < RTOL
+
+
+def test_rowcol_factory_rejects_nonprojector():
+    h = hierarchy()
+    with pytest.raises(ValueError):
+        kn.heom_rhs_rowcol_factory(h["H"], h["Q"], h["c"], h["nu"], h["keys"],
+                                   h["plus_idx"], h["minus_idx"])
+
+
+def test_levels_factory_matches_jax():
+    h = hierarchy()
+    args = (h["H"], h["Q"], h["c"], h["nu"], h["keys"], h["plus_idx"],
+            h["minus_idx"])
+    n = h["H"].shape[0]
+    ados = crand(h["rng"], h["keys"].shape[0], n, n)
+    rhs, embed, extract, _ = pk.heom_rhs_levels_xla_factory(
+        *args, dtype=np.float64)
+    fr, fi = embed(ados)
+    ref = extract(*rhs(jnp.asarray(fr), jnp.asarray(fi)))
+    out = kn.heom_rhs_levels_xla_factory(*args)(t(ados))
+    assert rel_err(out.numpy(), ref) < RTOL
+
+
+def test_coupling_factory_matches_jax_pallas_factory():
+    h = hierarchy()
+    args = (h["H"], h["Q"], h["c"], h["nu"], h["keys"], h["plus_idx"],
+            h["minus_idx"])
+    n = h["H"].shape[0]
+    ados = crand(h["rng"], h["keys"].shape[0], n, n)
+    rhs, embed, extract, _ = pk.heom_rhs_levels_factory(
+        *args, interpret=True, dtype=np.float64)
+    fr, fi = embed(ados)
+    ref = extract(*rhs(jnp.asarray(fr), jnp.asarray(fi)))
+    out = kn.heom_rhs_coupling_factory(*args)(t(ados))
+    assert rel_err(out.numpy(), ref) < RTOL
+
+
+# ---------------------------------------------------- the kernel wrapper
+def coupling_args(dtype=torch.complex128):
+    h = hierarchy()
+    _, OpT, nbr, w = kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"])
+    F = crand(h["rng"], h["keys"].shape[0], OpT.shape[-1])
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    return (torch.as_tensor(F, dtype=dtype), torch.as_tensor(nbr),
+            torch.as_tensor(w, dtype=rdt), torch.as_tensor(OpT, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_wrapper_on_cpu_is_plain_and_launches_nothing(dtype):
+    args = coupling_args(dtype)
+    kn.heom_coupling.launches = 0
+    out = kn.heom_coupling(*args)
+    assert kn.heom_coupling.launches == 0
+    torch.testing.assert_close(out, kn.heom_coupling_ref(*args), rtol=0, atol=0)
+
+
+def _bad_args(case):
+    F, nbr, w, OpT = coupling_args()
+    if case == "real F":
+        return (F.real.contiguous(), nbr, w, OpT), TypeError
+    if case == "w precision":
+        return (F, nbr, w.float(), OpT), TypeError
+    if case == "nbr int64":
+        return (F, nbr.long(), w, OpT), TypeError
+    if case == "OpT dtype":
+        return (F, nbr, w, OpT.to(torch.complex64)), TypeError
+    if case == "shape":
+        return (F[:-1].contiguous(), nbr, w, OpT), ValueError
+    if case == "noncontiguous":
+        return (F, nbr.t().contiguous().t(), w, OpT), ValueError
+    if case == "meta device":
+        return tuple(x.to("meta") for x in (F, nbr, w, OpT)), ValueError
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["real F", "w precision", "nbr int64",
+                                  "OpT dtype", "shape", "noncontiguous",
+                                  "meta device"])
+def test_wrapper_rejects_bad_arguments(case):
+    args, exc = _bad_args(case)
+    with pytest.raises(exc):
+        kn.heom_coupling(*args)
+
+
+def test_cuda_entry_points_match_ctypes_signatures():
+    """Every extern "C" function of the .cu source has argtypes in
+    _cuda_lib with as many entries as the C function has parameters."""
+    src = (Path(_cuda_lib.CSRC) / "heom_coupling.cu").read_text()
+    found = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        found[name] = len([p for p in params.split(",") if p.strip()])
+    sigs = _cuda_lib.SIGNATURES["heom_coupling"]
+    assert set(found) == set(sigs)
+    for name, nparams in found.items():
+        assert len(sigs[name]) == nparams
