@@ -9,18 +9,34 @@ Phases, one or more lines each; any failure raises and the exit code is
 nonzero:
 
 1. environment: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: compiles csrc/heom_coupling.cu with nvcc and prints the
-   -Xptxas -v report;
-3. kernel parity: the CUDA coupling kernel against its plain PyTorch
-   version at the FMO flagship shape (680 ADOs, V = 49) and at the n = 8
-   exciton-chain shape (680 ADOs, V = 64), complex128 (rel <= 1e-12) and
-   complex64 (rel <= 1e-5);
-4. main path: FMO().heom(..., device='cuda').run(...) for 4000 steps of
-   10 au (968 fs) at complex128 through the kernel (launch count 4 x nt, trace error and
-   agreement with the plain einsum run <= 1e-10, first window against a
-   CPU run), then the nexp=2 hierarchy (2,024 ADOs);
-5. timing, for the record: kernel vs plain per call (CUDA events), and
-   run() steps/s for every right-hand side, in turns.
+2. build: compiles csrc/heom_coupling.cu and csrc/spo.cu with nvcc, one
+   process each, started together, and prints their -Xptxas -v reports;
+3. kernel parity, each CUDA kernel against its plain PyTorch version,
+   complex128 (rel <= 1e-12) and complex64 (rel <= 1e-5):
+   - the HEOM coupling at the FMO flagship shape (680 ADOs, V = 49) and
+     at the n = 8 exciton-chain shape (680 ADOs, V = 64);
+   - the SPO phase multiply and potential apply at the 256^3 x 2-state
+     chip shape (states-first, the layout of the FFT on the main path)
+     and at a ragged 37 x 41 x 29 x 3-state shape in both layouts;
+4. main paths, each driven with every launch count set to 0 just before
+   and read just after:
+   - HEOM: FMO().heom(..., device='cuda').run(...) for 4000 steps of
+     10 au (968 fs) at complex128 through the kernel (launch count
+     4 x nt, trace error and agreement with the plain einsum run
+     <= 1e-10, first window against a CPU run), then the nexp=2
+     hierarchy (2,024 ADOs);
+   - SPO: SPO3 on a 256^3 grid with 2 states (the two-state coupled
+     harmonic model of bench.py's _spo3_model), run(dt=0.004, nt=200,
+     nout=20) at complex128 through the kernels (launch counts 2 x nt
+     and nt, norm drift <= 1e-10, agreement with kernel='xla' <= 1e-12);
+     the first 10 steps at 64^3 against a NumPy complex128 Strang loop
+     (<= 1e-10); the 1-D Morse model of examples/spo_morse.py (512
+     points) through the kernels and through kernel='dft' (<= 1e-10);
+5. timing, for the record (CUDA events after warm-up, in turns): kernel,
+   plain version and one-call PyTorch yardstick per call; run() steps/s
+   for every right-hand side (HEOM) and for cuda and xla (SPO 256^3);
+   SPO build() seconds, a torch.profiler breakdown of the 256^3 Strang
+   step, and peak device memory.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
@@ -29,6 +45,7 @@ printing any result.
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,9 +57,46 @@ NT = 4000          # 4000 x 10 au = 967.6 fs
 NOUT = 40
 DEVICE = "cuda"
 
+SPO_N = 256        # the chip-scale grid of bench.py's bench_spo3_tpu
+SPO_NS = 2
+SPO_DT = 0.004
+SPO_NT = 200
+SPO_NOUT = 20
+RAGGED = (37, 41, 29)
+MORSE_NT = 10000   # examples/spo_morse.py: 10000 steps of 0.02
+
+# H100 SXM data sheet: HBM3 bytes/s; flop/s of FP64 (tensor cores) and of
+# FP32 (outside them), both 67e12
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+
 
 def log(msg):
     print(msg, flush=True)
+
+
+def bound_ms(nbytes, flops):
+    """The least time for the work: bytes at the HBM rate or flops at the
+    peak rate, whichever is larger (ms, and which)."""
+    t_b = nbytes / PEAK_BYTES
+    t_f = flops / PEAK_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def kernel_wrappers():
+    from pyqed_tpu_torch.ops import kernels as kn
+    return {"heom_coupling": kn.heom_coupling,
+            "spo_phase": kn.spo_phase_multiply,
+            "spo_potential": kn.spo_potential_apply}
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 # ------------------------------------------------------------------ 1
@@ -66,11 +120,17 @@ def phase_environment():
 # ------------------------------------------------------------------ 2
 def phase_build():
     from pyqed_tpu_torch.ops import _cuda_lib
-    built = _cuda_lib.load("heom_coupling")
-    log(f"[build] {built.path.name}: nvcc {built.seconds:.1f} s")
-    for line in built.log.splitlines():
-        if line.strip():
-            log(f"[build] {line.strip()}")
+    names = list(_cuda_lib.SIGNATURES)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(_cuda_lib.load, names))
+    log(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f} s "
+        "wall, nvcc in parallel")
+    for b in built:
+        log(f"[build] {b.path.name}: nvcc {b.seconds:.1f} s")
+        for line in b.log.splitlines():
+            if line.strip():
+                log(f"[build] {line.strip()}")
 
 
 # ------------------------------------------------------------------ 3
@@ -112,6 +172,27 @@ def coupling_operands(sol, dtype):
             torch.as_tensor(OpT, dtype=dtype, device=DEVICE))
 
 
+def coupling_bound(F, nbr, w, OpT):
+    """Bytes (each operand read once, out written once) and flops (one
+    V x V complex row product per existing hierarchy edge) of one call."""
+    V = F.shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in (F, nbr, w, OpT, F))
+    edges = int((nbr >= 0).sum().item())
+    return bound_ms(nbytes, 8 * V * V * edges)
+
+
+def check_close(label, out, ref, tol):
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    log(f"[parity] {label}: max abs err {err:.3e}, rel {rel:.3e} "
+        f"(tol {tol:g})")
+    if not (np.isfinite(rel) and rel <= tol):
+        raise AssertionError(f"kernel disagrees with plain version at "
+                             f"{label}: rel {rel:.3e}")
+    return err
+
+
 def phase_parity(shapes):
     from pyqed_tpu_torch.ops import kernels as kn
     errs = {}
@@ -120,16 +201,66 @@ def phase_parity(shapes):
             F, nbr, w, OpT = coupling_operands(sol, dtype)
             out = kn.heom_coupling(F, nbr, w, OpT)
             ref = kn.heom_coupling_ref(F, nbr, w, OpT)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            log(f"[parity] {name} nado={F.shape[0]} V={F.shape[1]} "
-                f"nj={OpT.shape[0]} {str(dtype)[6:]}: max abs err {err:.3e}, "
-                f"rel {rel:.3e} (tol {tol:g})")
-            if not (np.isfinite(rel) and rel <= tol):
-                raise AssertionError(f"kernel disagrees with plain version "
-                                     f"at {name} {dtype}: rel {rel:.3e}")
-            errs[(name, dtype)] = err
+            errs[(name, dtype)] = check_close(
+                f"heom_coupling {name} nado={F.shape[0]} V={F.shape[1]} "
+                f"nj={OpT.shape[0]} {str(dtype)[6:]}", out, ref, tol)
+    return errs
+
+
+def spo_inputs(kind, shape, ns, dtype, states_first, seed=SEED):
+    """Operator and state of one SPO kernel from a numpy seed, on the
+    card; states_first gives psi the layout a batched FFT returns."""
+    rng = np.random.default_rng(seed)
+    rdt = np.float64 if dtype == torch.complex128 else np.float32
+
+    def crand(*sh):
+        re = torch.from_numpy(rng.standard_normal(sh, dtype=rdt))
+        im = torch.from_numpy(rng.standard_normal(sh, dtype=rdt))
+        return torch.complex(re, im).to(DEVICE)
+
+    psi = (crand(ns, *shape).movedim(0, -1) if states_first
+           else crand(*shape, ns))
+    if kind == "phase":
+        theta = torch.from_numpy(rng.standard_normal(shape, dtype=rdt))
+        op = torch.polar(torch.ones_like(theta), theta).to(DEVICE)
+    else:
+        op = crand(*shape, ns, ns)
+    return op, psi
+
+
+SPO_FNS = {"phase": ("spo_phase_multiply", "spo_phase_multiply_ref"),
+           "potential": ("spo_potential_apply", "spo_potential_apply_ref")}
+
+
+def spo_bound(kind, npts, ns, dtype):
+    """Bytes and flops of one SPO kernel call (each operand read once,
+    the output written once)."""
+    c = 16 if dtype == torch.complex128 else 8
+    if kind == "phase":
+        return bound_ms(npts * (2 * ns * c + c), 6 * ns * npts)
+    return bound_ms(npts * (ns * ns * c + 2 * ns * c), 8 * ns * ns * npts)
+
+
+def phase_spo_parity():
+    from pyqed_tpu_torch.ops import kernels as kn
+    errs = {}
+    full = (SPO_N,) * 3
+    for kind, (wrap, ref) in SPO_FNS.items():
+        for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64, 1e-5)):
+            cases = [(full, SPO_NS, True)] + [(RAGGED, 3, sf)
+                                              for sf in (False, True)]
+            for shape, ns, sf in cases:
+                op, psi = spo_inputs(kind, shape, ns, dtype, sf)
+                out = getattr(kn, wrap)(op, psi)
+                if out.is_cuda and out.stride() != psi.stride():
+                    raise AssertionError(f"{wrap}: output strides "
+                                         f"{out.stride()} != {psi.stride()}")
+                label = (f"spo_{kind} {'x'.join(map(str, shape))} x {ns} "
+                         f"{'states-first' if sf else 'states-last'} "
+                         f"{str(dtype)[6:]}")
+                errs[(kind, shape, sf, dtype)] = check_close(
+                    label, out, getattr(kn, ref)(op, psi), tol)
+                del op, psi, out
     return errs
 
 
@@ -137,15 +268,15 @@ def phase_parity(shapes):
 def checked_run(m, sol, nt, label):
     """Run through the default (kernel) path, counting launches, then the
     plain einsum path on the same card; check both."""
-    from pyqed_tpu_torch.ops import kernels as kn
     from pyqed_tpu_torch.units import au2fs
     rho0, e_ops = m.initial_state(0), m.site_projectors()
-    kn.heom_coupling.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = sol.run(rho0, dt=DT, nt=nt, nout=NOUT, e_ops=e_ops)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kn.heom_coupling.launches
+    counts = read_counts()
+    launches = counts["heom_coupling"]
     nwin = nt // NOUT
     obs = res.observables
     if tuple(obs.shape) != (nwin + 1, m.nsites) or not bool(
@@ -160,12 +291,13 @@ def checked_run(m, sol, nt, label):
     p = pops[-1].cpu().numpy()
     log(f"[main] {label}: nado={res.ado.shape[0]} nt={nt} "
         f"({nt * DT * au2fs:.1f} fs) in {wall:.2f} s, kernel launches "
-        f"{launches} (expected {4 * nt}), trace err {trace_err:.2e}, "
-        f"|kernel - einsum| {diff:.2e}, final populations "
+        f"{counts} (expected heom_coupling {4 * nt}), trace err "
+        f"{trace_err:.2e}, |kernel - einsum| {diff:.2e}, final populations "
         + " ".join(f"{x:.4f}" for x in p))
-    if launches != 4 * nt:
-        raise AssertionError(f"{label}: {launches} kernel launches, "
-                             f"expected {4 * nt}")
+    if counts != {"heom_coupling": 4 * nt, "spo_phase": 0,
+                  "spo_potential": 0}:
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"heom_coupling {4 * nt} and no other")
     if not trace_err <= 1e-10:
         raise AssertionError(f"{label}: trace error {trace_err:.3e}")
     if not diff <= 1e-10:
@@ -180,8 +312,9 @@ def phase_main():
     sol = m.heom(**FLAGSHIP, device=DEVICE)
     res, launches = checked_run(m, sol, NT, "FMO flagship nexp=1")
     # the first window against the same run on the CPU
-    cpu = m.heom(**FLAGSHIP).run(m.initial_state(0), dt=DT, nt=NOUT,
-                                 nout=NOUT, e_ops=m.site_projectors())
+    cpu = m.heom(**FLAGSHIP, device="cpu").run(
+        m.initial_state(0), dt=DT, nt=NOUT, nout=NOUT,
+        e_ops=m.site_projectors())
     d = (res.observables[:2].cpu() - cpu.observables).abs().max().item()
     log(f"[main] first window vs CPU einsum run: max |diff| {d:.2e}")
     if not d <= 1e-12:
@@ -189,6 +322,165 @@ def phase_main():
     sol2 = m.heom(**dict(FLAGSHIP, nexp=2), device=DEVICE)
     checked_run(m, sol2, 400, "FMO nexp=2")
     return launches
+
+
+def spo3_model(n, span=7.0):
+    """3D two-state coupled-harmonic diabatic model on an n^3 grid, as
+    bench.py's _spo3_model builds it: surfaces v1, v2, coupling c,
+    kinetic k^2/2 and the ground-state packet displaced to x = -1."""
+    x = np.linspace(-span, span, n, endpoint=False)
+    dx = x[1] - x[0]
+    shape3 = (n, n, n)
+    X = x[:, None, None]
+    Y = x[None, :, None]
+    Z = x[None, None, :]
+    R2 = np.broadcast_to(X ** 2 + Y ** 2 + Z ** 2, shape3)
+    v1 = 0.5 * R2
+    v2 = 0.5 * (np.broadcast_to((X - 1.0) ** 2 + Y ** 2 + Z ** 2,
+                                shape3)) + 1.0
+    c = 0.2 * np.exp(-0.5 * R2)
+    k = 2 * np.pi * np.fft.fftfreq(n, dx)
+    k2 = (k[:, None, None] ** 2 + k[None, :, None] ** 2
+          + k[None, None, :] ** 2) / 2.0
+    psi0 = np.exp(-((X + 1.0) ** 2 + Y ** 2 + Z ** 2) / 2.0)
+    psi0 = np.broadcast_to(psi0, shape3).copy()
+    psi0 /= np.sqrt(np.sum(psi0 ** 2) * dx ** 3)
+    return x, v1, v2, c, k2, psi0
+
+
+def spo3_phase_ops(v1, v2, c, k2, dt):
+    """Closed-form 2x2 Hermitian potential half-step propagator
+    exp(-i V dt/2) = e^{-i m dt/2}[cos(r dt/2) I - i sin(r dt/2)/r
+    (d sz + c sx)], m = (v1+v2)/2, d = (v1-v2)/2, and expK."""
+    m = 0.5 * (v1 + v2)
+    d = 0.5 * (v1 - v2)
+    r = np.sqrt(d * d + c * c)
+    r_safe = np.where(r == 0, 1.0, r)
+    th = dt / 2.0
+    cosr = np.cos(r * th)
+    sinc = np.sin(r * th) / r_safe
+    ph = np.exp(-1j * m * th)
+    u00 = ph * (cosr - 1j * sinc * d)
+    u01 = ph * (-1j * sinc * c)
+    u11 = ph * (cosr + 1j * sinc * d)
+    return u00, u01, u11, np.exp(-1j * k2 * dt)
+
+
+def spo3_solver(n, kernel=None):
+    """The port's SPO3 on the card for the n^3 model, and psi0 in
+    state 0."""
+    from pyqed_tpu_torch import SPO3
+    x, v1, v2, c, _, g = spo3_model(n)
+    sol = SPO3(x, x, x, masses=[1.0, 1.0, 1.0], nstates=SPO_NS,
+               kernel=kernel, device=DEVICE)
+    sol.set_DPES([v1, v2], [[(0, 1), c]])
+    psi0 = torch.zeros((n, n, n, SPO_NS), dtype=torch.complex128,
+                       device=DEVICE)
+    psi0[..., 0] = torch.as_tensor(g, device=DEVICE)
+    return sol, psi0
+
+
+def rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def phase_spo_main():
+    """The 256^3 SPO3 run through the kernels, checked; returns the
+    launch counts of that run and the solver for the timing phase."""
+    torch.cuda.reset_peak_memory_stats()
+    sol, psi0 = spo3_solver(SPO_N)
+    kw = dict(dt=SPO_DT, nt=SPO_NT, nout=SPO_NOUT, return_states=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sol.run(psi0, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    nwin = SPO_NT // SPO_NOUT
+    pops = res.population
+    if (tuple(pops.shape) != (nwin + 1, SPO_NS)
+            or tuple(res.psi.shape) != (SPO_N,) * 3 + (SPO_NS,)
+            or not bool(torch.isfinite(torch.view_as_real(res.psi)).all())
+            or not bool(torch.isfinite(torch.view_as_real(res.rho_el)).all())):
+        raise AssertionError("SPO3: bad result shapes or non-finite values")
+    norms = pops.sum(dim=1)
+    drift = (norms - norms[0]).abs().max().item()
+    sol.kernel = "xla"
+    res_x = sol.run(psi0, **kw)
+    sol.kernel = None
+    d_psi = rel(res.psi, res_x.psi)
+    d_rho = rel(res.rho_el, res_x.rho_el)
+    p = pops[-1].cpu().numpy()
+    log(f"[main] SPO3 {SPO_N}^3 x {SPO_NS} complex128 nt={SPO_NT} in "
+        f"{wall:.2f} s (build included), kernel launches {counts} "
+        f"(expected spo_potential {2 * SPO_NT}, spo_phase {SPO_NT}), "
+        f"norm drift {drift:.2e}, |cuda - xla| rel psi {d_psi:.2e} "
+        f"rho_el {d_rho:.2e}, final populations {p[0]:.6f} {p[1]:.6f}")
+    if counts != {"heom_coupling": 0, "spo_phase": SPO_NT,
+                  "spo_potential": 2 * SPO_NT}:
+        raise AssertionError(f"SPO3: launches {counts}")
+    if not drift <= 1e-10:
+        raise AssertionError(f"SPO3: norm drift {drift:.3e}")
+    if not (d_psi <= 1e-12 and d_rho <= 1e-12):
+        raise AssertionError(f"SPO3: cuda and xla runs differ: psi "
+                             f"{d_psi:.3e}, rho_el {d_rho:.3e}")
+    if not p[1] > 1e-6:
+        raise AssertionError("SPO3: no population transfer")
+    log(f"[main] SPO3 peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts, sol, psi0
+
+
+def phase_spo_numpy_check(n=64, steps=10):
+    """The first steps at n^3 against a NumPy complex128 Strang loop with
+    the closed-form 2x2 propagator (as bench.py's parity gate)."""
+    sol, psi0 = spo3_solver(n)
+    res = sol.run(psi0, dt=SPO_DT, nt=steps, nout=steps,
+                  return_states=False)
+    _, v1, v2, c, k2, g = spo3_model(n)
+    u00, u01, u11, expK = spo3_phase_ops(v1, v2, c, k2, SPO_DT)
+    p = np.zeros((n, n, n, 2), np.complex128)
+    p[..., 0] = g
+
+    def vhalf(p):
+        q = np.empty_like(p)
+        q[..., 0] = u00 * p[..., 0] + u01 * p[..., 1]
+        q[..., 1] = u01 * p[..., 0] + u11 * p[..., 1]
+        return q
+
+    for _ in range(steps):
+        p = vhalf(p)
+        p = np.fft.ifftn(np.fft.fftn(p, axes=(0, 1, 2)) * expK[..., None],
+                         axes=(0, 1, 2))
+        p = vhalf(p)
+    dev = res.psi.cpu().numpy()
+    err = float(np.max(np.abs(dev - p)) / np.max(np.abs(p)))
+    log(f"[main] SPO3 {n}^3 first {steps} steps vs NumPy complex128 Strang "
+        f"loop: rel {err:.2e} (tol 1e-10)")
+    if not err <= 1e-10:
+        raise AssertionError(f"SPO3 {n}^3 differs from NumPy: {err:.3e}")
+
+
+def phase_morse():
+    """examples/spo_morse.py on the card: kernels vs kernel='dft'."""
+    from pyqed_tpu_torch import SPO, gwp
+    x = np.linspace(-3, 12, 512, endpoint=False)
+    D, a, m = 2.0, 0.5, 20.0
+    psi0 = gwp(x, a=np.sqrt(2 * D * a * a * m), x0=0.3)
+    out = {}
+    for k in (None, "dft"):
+        s = SPO(x, mass=m, kernel=k, device=DEVICE)
+        s.set_potential(D * (1 - np.exp(-a * (x - 1.0))) ** 2)
+        out[k] = s.run(psi0, dt=0.02, nt=MORSE_NT, nout=100)
+    torch.cuda.synchronize()
+    d = max((out[None].psi - out["dft"].psi).abs().max().item(),
+            (out[None].population - out["dft"].population).abs().max().item())
+    drift = abs(out[None].population[-1].sum().item() - 1.0)
+    log(f"[main] Morse 512 points nt={MORSE_NT}: |kernels - dft| {d:.2e} "
+        f"(tol 1e-10), norm drift {drift:.2e}")
+    if not d <= 1e-10:
+        raise AssertionError(f"Morse: kernel and dft runs differ by {d:.3e}")
 
 
 # ------------------------------------------------------------------ 5
@@ -230,10 +522,13 @@ def phase_timing(card, shapes):
             t_plain = event_ms(kn.heom_coupling_ref, args)
             t_kern = event_ms(kn.heom_coupling, args)
             t_plain2 = event_ms(kn.heom_coupling_ref, args)
-            times[(name, dtype)] = (t_kern, min(t_plain, t_plain2))
+            times[(name, dtype)] = (t_kern, min(t_plain, t_plain2),
+                                    coupling_bound(*args))
             log(f"[time] heom_coupling {name} {str(dtype)[6:]}: kernel "
                 f"{t_kern * 1e3:.1f} us, plain {t_plain * 1e3:.1f} / "
-                f"{t_plain2 * 1e3:.1f} us per call ({card})")
+                f"{t_plain2 * 1e3:.1f} us per call, bound "
+                f"{times[(name, dtype)][2][0] * 1e3:.2f} us "
+                f"({times[(name, dtype)][2][1]}) ({card})")
     m = FMO()
     sol = m.heom(**FLAGSHIP, device=DEVICE)
     order = ["cuda", "einsum", "matmul", "levels", "rowcol"]
@@ -247,6 +542,140 @@ def phase_timing(card, shapes):
     return times
 
 
+def spo_library(kind):
+    """One PyTorch call computing the kernel's function (the yardstick;
+    the port never calls it)."""
+    if kind == "phase":
+        return lambda op, psi: psi * op[..., None]
+    return lambda op, psi: torch.matmul(op, psi.unsqueeze(-1))
+
+
+def phase_spo_kernel_timing(card):
+    from pyqed_tpu_torch.ops import kernels as kn
+    times = {}
+    npts = SPO_N ** 3
+    for dtype in (torch.complex128, torch.complex64):
+        for kind, (wrap, ref) in SPO_FNS.items():
+            op, psi = spo_inputs(kind, (SPO_N,) * 3, SPO_NS, dtype, True)
+            args = (op, psi)
+            kern, plain = getattr(kn, wrap), getattr(kn, ref)
+            t = dict(plain=[], kernel=[], library=[])
+            for which, fn in (("plain", plain), ("kernel", kern),
+                              ("library", spo_library(kind)),
+                              ("kernel", kern), ("plain", plain)):
+                t[which].append(event_ms(fn, args, iters=20, warmup=3))
+            b = spo_bound(kind, npts, SPO_NS, dtype)
+            times[(kind, dtype)] = dict(
+                ms=min(t["kernel"]), plain_ms=min(t["plain"]),
+                library_ms=t["library"][0], bound=b)
+            log(f"[time] spo_{kind} {SPO_N}^3 x {SPO_NS} {str(dtype)[6:]} "
+                f"states-first: kernel "
+                + " / ".join(f"{x:.3f}" for x in t["kernel"])
+                + " ms, plain " + " / ".join(f"{x:.3f}" for x in t["plain"])
+                + f" ms, library {t['library'][0]:.3f} ms, bound "
+                f"{b[0]:.3f} ms ({b[1]}) ({card})")
+            del op, psi, args
+    return times
+
+
+def spo_steps_per_s(sol, psi0, kernel, nt=100):
+    """run() steps/s at 256^3 from the difference of an nt-step and a
+    one-window run, so the setup of run() cancels; a first one-window run
+    makes sure both reuse the factors of one build()."""
+    sol.kernel = kernel
+    sol.run(psi0, dt=SPO_DT, nt=SPO_NOUT, nout=SPO_NOUT, return_states=False)
+    walls = []
+    for steps in (SPO_NOUT, nt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol.run(psi0, dt=SPO_DT, nt=steps, nout=SPO_NOUT,
+                return_states=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    sol.kernel = None
+    return (nt - SPO_NOUT) / (walls[1] - walls[0])
+
+
+def spo_profile(sol, psi0, steps=5):
+    """Device time per Strang step by kernel name (torch.profiler; only
+    the device's own events, so time under an aten op is not counted
+    twice)."""
+    sol.build(SPO_DT)
+    psi = psi0
+    for _ in range(2):
+        psi = sol.step(psi)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            psi = sol.step(psi)
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / steps, evt.count // steps, evt.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows
+
+
+def eigh_batch_probe(card):
+    """One batched eigh of 2x2 blocks at the build's chunk size and at
+    twice it: the reason grid/spo.py chunks (printed, not checked)."""
+    from pyqed_tpu_torch.grid.spo import EIGH_CHUNK
+    rng = np.random.default_rng(SEED)
+    for b in (EIGH_CHUNK, 2 * EIGH_CHUNK):
+        a = torch.as_tensor(rng.standard_normal((b, 2, 2)), device=DEVICE)
+        a = a + a.transpose(-1, -2)
+        try:
+            torch.linalg.eigh(a)            # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.linalg.eigh(a)
+            torch.cuda.synchronize()
+            what = f"ok, {(time.perf_counter() - t0) * 1e3:.3f} ms"
+        except torch.linalg.LinAlgError as e:
+            what = f"fails: {str(e)[:60]}"
+        log(f"[time] torch.linalg.eigh of {b} 2x2 blocks in one call: "
+            f"{what} ({card})")
+
+
+def phase_spo_timing(card, sol, psi0):
+    times = phase_spo_kernel_timing(card)
+    eigh_batch_probe(card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol.build(SPO_DT)
+    torch.cuda.synchronize()
+    log(f"[time] SPO3 {SPO_N}^3 x {SPO_NS} build() {time.perf_counter() - t0:.3f}"
+        f" s (batched eigh of {SPO_N ** 3} 2x2 blocks, expV, expV/2, expK) "
+        f"({card})")
+    order = [None, "xla"]
+    rates = {k: [] for k in order}
+    for k in order + order[::-1]:
+        rates[k].append(spo_steps_per_s(sol, psi0, k))
+    for k in order:
+        log(f"[time] run() SPO3 {SPO_N}^3 x {SPO_NS} complex128 "
+            f"kernel={k or 'cuda'}: "
+            + ", ".join(f"{r:.2f}" for r in rates[k])
+            + f" steps/s ({card})")
+    total, rows = spo_profile(sol, psi0)
+    busy = total / 1e3 * max(rates[None]) / 1e3
+    log(f"[time] SPO3 {SPO_N}^3 Strang step, kernel=cuda, torch.profiler: "
+        f"device {total / 1e3:.3f} ms per step; busy share against the "
+        f"fastest unprofiled run() {busy:.2f} ({card})")
+    for us, count, key in rows[:12]:
+        log(f"[time]   {us / 1e3:8.3f} ms  x{count:<3d} {key[:90]}")
+    log(f"[time] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB ({card})")
+    return times
+
+
 def main():
     card = phase_environment()
     import pyqed_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -255,10 +684,15 @@ def main():
     shapes = {"fmo": FMO().heom(**FLAGSHIP, device=DEVICE),
               "chain8": chain_solver()}
     errs = phase_parity(shapes)
+    spo_errs = phase_spo_parity()
     launches = phase_main()
+    spo_counts, spo_sol, spo_psi0 = phase_spo_main()
+    phase_spo_numpy_check()
+    phase_morse()
     times = phase_timing(card, shapes)
-    t_kern, t_plain = times[("fmo", torch.complex128)]
-    log(json.dumps({"kernels": [{
+    spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
+    t_kern, t_plain, (b_ms, b_by) = times[("fmo", torch.complex128)]
+    kernels = [{
         "name": "heom_coupling",
         "route": "cuda",
         "source": "pyqed_tpu_torch/csrc/heom_coupling.cu",
@@ -267,7 +701,29 @@ def main():
         "max_abs_err": errs[("fmo", torch.complex128)],
         "ms": t_kern,
         "plain_ms": t_plain,
-    }]}))
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }]
+    for kind, replaces in (("phase", "pyqed_tpu/ops/pallas_kernels.py:267"),
+                           ("potential",
+                            "pyqed_tpu/ops/pallas_kernels.py:309")):
+        t = spo_times[(kind, torch.complex128)]
+        kernels.append({
+            "name": f"spo_{kind}",
+            "route": "cuda",
+            "source": "pyqed_tpu_torch/csrc/spo.cu",
+            "replaces": replaces,
+            "launches": spo_counts[f"spo_{kind}"],
+            "max_abs_err": spo_errs[(kind, (SPO_N,) * 3, True,
+                                     torch.complex128)],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"],
+        })
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``pyqed_tpu/config.py``. torch runs complex128 on
 both the CPU and CUDA, so there is no global precision switch: solvers
-follow the dtype of their inputs, and the device is always explicit.
+follow the dtype of their inputs. Entry points run on the card unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -49,10 +50,17 @@ def numpy_dtype_of(dtype: torch.dtype):
     return np.complex128 if dtype == torch.complex128 else np.complex64
 
 
+def not_yet_ported(what) -> NotImplementedError:
+    """The error that a part of pyqed_tpu the port lacks raises."""
+    return NotImplementedError(f"{what} is not yet ported to pyqed_tpu_torch")
+
+
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a :class:`torch.device`, ``cpu`` when None. Asking
-    for CUDA without a usable card raises instead of falling back."""
-    dev = torch.device("cpu" if device is None else device)
+    """``device`` as a :class:`torch.device`, ``cuda`` (the card) when
+    None. Asking for CUDA, explicitly or by default, without a usable card
+    raises instead of falling back to the CPU; pass ``device="cpu"`` to
+    run there."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "

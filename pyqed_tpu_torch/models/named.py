@@ -59,7 +59,8 @@ class FMO:
              decomposition="matsubara", device=None, **kw):
         """HEOMSolver with an independent Drude bath per site
         (temperature in Kelvin; nexp Matsubara/Pade terms per site on top
-        of the Drude pole), its hierarchy on ``device``."""
+        of the Drude pole), its hierarchy on ``device``: the card when
+        None (raises without one), ``"cpu"`` on request."""
         from ..open.heom import HEOMSolver
         return HEOMSolver(self.H, bath=self._bath(temperature), lmax=lmax,
                           decomposition=decomposition, nexp=nexp,

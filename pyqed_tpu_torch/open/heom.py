@@ -22,16 +22,13 @@ import itertools
 import numpy as np
 import torch
 
-from ..config import complex_dtype_for, numpy_dtype_of, resolve_device
+from ..config import (complex_dtype_for, not_yet_ported, numpy_dtype_of,
+                      resolve_device)
 from ..core.result import Result
 from ..ops import kernels as kn
 from .bath import DrudeBath
 
 KERNELS = ("einsum", "matmul", "levels", "rowcol", "cuda")
-
-
-def _not_yet_ported(what):
-    return NotImplementedError(f"{what} is not yet ported to pyqed_tpu_torch")
 
 
 def _numpy(a):
@@ -48,7 +45,7 @@ def _kernel_name(kernel):
     if kernel == "pallas":
         return "cuda"
     if kernel.endswith("-fast"):
-        raise _not_yet_ported(f"kernel={kernel!r} (reduced precision)")
+        raise not_yet_ported(f"kernel={kernel!r} (reduced precision)")
     if kernel not in KERNELS:
         raise ValueError(f"unknown HEOM kernel {kernel!r}; expected one of "
                          f"{KERNELS} or 'pallas'")
@@ -111,14 +108,15 @@ class HEOMSolver:
         ``cuda`` on a CUDA device and ``einsum`` on the CPU. With complex
         bath rates (underdamped or Prony baths) ``cuda`` runs as
         ``matmul``, as the JAX package routes its level kernel.
-    device : where the hierarchy lives; ``cpu`` when None.
+    device : where the hierarchy lives; the card (``cuda``) when None,
+        which raises without one. Pass ``"cpu"`` to run on the CPU.
     """
 
     def __init__(self, H, bath=None, c_ops=None, e_ops=None, lmax: int = 4,
                  decomposition="matsubara", nexp: int = 1, kernel=None,
                  mesh=None, device=None):
         if mesh is not None:
-            raise _not_yet_ported("HEOMSolver(mesh=...)")
+            raise not_yet_ported("HEOMSolver(mesh=...)")
         self.device = resolve_device(device)
         self._H_np = _numpy(H)
         self.H = torch.as_tensor(self._H_np, device=self.device)
@@ -271,7 +269,7 @@ class HEOMSolver:
                           ("resume", resume), ("edip", edip),
                           ("pulse", pulse)):
             if val is not None:
-                raise _not_yet_ported(f"HEOMSolver.run({name}=...)")
+                raise not_yet_ported(f"HEOMSolver.run({name}=...)")
         if e_ops is None:
             e_ops = self.e_ops or []
         dev = self.device
@@ -328,25 +326,25 @@ class HEOMSolver:
 
     # ------------------------------------------- not yet ported (raise)
     def correlation_3op_1t(self, *args, **kwargs):
-        raise _not_yet_ported("HEOMSolver.correlation_3op_1t")
+        raise not_yet_ported("HEOMSolver.correlation_3op_1t")
 
     def correlation_2op_1t(self, *args, **kwargs):
-        raise _not_yet_ported("HEOMSolver.correlation_2op_1t")
+        raise not_yet_ported("HEOMSolver.correlation_2op_1t")
 
     def correlation_3op_2t(self, *args, **kwargs):
-        raise _not_yet_ported("HEOMSolver.correlation_3op_2t")
+        raise not_yet_ported("HEOMSolver.correlation_3op_2t")
 
     def liouvillian_dense(self, *args, **kwargs):
-        raise _not_yet_ported("HEOMSolver.liouvillian_dense")
+        raise not_yet_ported("HEOMSolver.liouvillian_dense")
 
     def steady_state(self, *args, **kwargs):
-        raise _not_yet_ported("HEOMSolver.steady_state")
+        raise not_yet_ported("HEOMSolver.steady_state")
 
     def propagator(self, *args, **kwargs):
-        raise _not_yet_ported("HEOMSolver.propagator")
+        raise not_yet_ported("HEOMSolver.propagator")
 
     def absorption(self, *args, **kwargs):
-        raise _not_yet_ported("HEOMSolver.absorption")
+        raise not_yet_ported("HEOMSolver.absorption")
 
 
 class HEOMSolverDrude(HEOMSolver):
@@ -354,7 +352,7 @@ class HEOMSolverDrude(HEOMSolver):
     (``pyqed_tpu.open.heom.HEOMSolverDrude``): not yet ported."""
 
     def __init__(self, *args, **kwargs):
-        raise _not_yet_ported("HEOMSolverDrude")
+        raise not_yet_ported("HEOMSolverDrude")
 
 
 def solver_from_reference(H, modes, lmax, *, device, kernel=None):

@@ -30,12 +30,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_SPO = (_P, _P, _P, _L, _I, _L, _L, _P)
 # exported C functions of each source: name -> argtypes (restype is int,
 # the cudaError_t of the launch)
 SIGNATURES = {
     "heom_coupling": {
         "heom_coupling_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
         "heom_coupling_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "spo": {
+        "spo_phase_c128": _SPO,
+        "spo_phase_c64": _SPO,
+        "spo_potential_c128": _SPO,
+        "spo_potential_c64": _SPO,
     },
 }
 

@@ -1,7 +1,12 @@
-"""HEOM right-hand-side operators and the hand-written coupling kernel.
+"""HEOM right-hand-side operators, the split-operator step, and their
+hand-written CUDA kernels.
 
-PyTorch counterpart of the HEOM half of ``pyqed_tpu/ops/pallas_kernels.py``
-(reference semantics: pyqed/heom/deom.py:641-673 ``rem_cal``). With
+PyTorch counterpart of ``pyqed_tpu/ops/pallas_kernels.py`` §(a) HEOM and
+§(b) split operator. The split-operator half (at the end of this module)
+holds :func:`spo_phase_multiply` and :func:`spo_potential_apply`, the
+wrappers of ``csrc/spo.cu``, each with its plain version beside it.
+
+HEOM (reference semantics: pyqed/heom/deom.py:641-673 ``rem_cal``). With
 row-major vec(), left(A) = A ⊗ I and right(A) = I ⊗ Aᵀ act on vec(ρ), and
 the HEOM right-hand side of ADO ρ_N is
 
@@ -24,12 +29,16 @@ Contents:
 - the coupling kernel: its wrapper :func:`heom_coupling` and two plain
   versions, :func:`level_coupling` (the level-blocked form of the TPU
   kernel) and :func:`heom_coupling_ref` (the index form the CUDA kernel
-  computes).
+  computes);
+- the split-operator kernels: :func:`spo_phase_multiply` and
+  :func:`spo_potential_apply`, with plain versions
+  :func:`spo_phase_multiply_ref` and :func:`spo_potential_apply_ref`.
 
 The TPU workarounds of the JAX module are not carried over: operands stay
 complex (no real/imag planes), and nothing is padded to 8 rows or 128
-lanes. The hierarchy enumeration is level-graded, so without padding the
-level layout is the compact ``(nado, n·n)`` layout itself.
+lanes (HEOM) or to tiles of 512 or 256 grid points (SPO). The hierarchy
+enumeration is level-graded, so without padding the level layout is the
+compact ``(nado, n·n)`` layout itself.
 """
 from __future__ import annotations
 
@@ -440,3 +449,138 @@ def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
         return out.reshape(nado, n, n)
 
     return rhs
+
+
+# =====================================================================
+# the split-operator kernels
+# =====================================================================
+
+def spo_phase_multiply_ref(expK, psik):
+    """Plain version of :func:`spo_phase_multiply`: ψ_k ⊙ expK over the
+    states."""
+    return psik * expK[..., None]
+
+
+def spo_potential_apply_ref(expV, psi):
+    """Plain version of :func:`spo_potential_apply`: one ns×ns matvec
+    per grid point."""
+    return torch.einsum("...ab, ...b -> ...a", expV, psi)
+
+
+def _grid_strides(gshape, sp):
+    """C-order strides of the grid axes for a point stride ``sp``."""
+    out, acc = [], sp
+    for n in reversed(gshape):
+        out.append(acc)
+        acc *= n
+    return out[::-1]
+
+
+def _spo_layout(fn, psi):
+    """(npts, ns, sp, ss) of a ``grid_shape + (ns,)`` tensor in one of the
+    two dense layouts the kernels take: states last (point stride
+    sp = ns, state stride ss = 1), or states first, as a batched FFT over
+    the grid axes returns it (sp = 1, ss = npts). Raises for any other."""
+    gshape = tuple(psi.shape[:-1])
+    ns = psi.shape[-1]
+    npts = int(np.prod(gshape))
+    for sp, ss in ((ns, 1), (1, npts)):
+        want = _grid_strides(gshape, sp) + [ss]
+        if all(n == 1 or s == w
+               for n, s, w in zip(psi.shape, psi.stride(), want)):
+            return npts, ns, sp, ss
+    raise ValueError(f"{fn}: psi {tuple(psi.shape)} with strides "
+                     f"{psi.stride()} is neither states-last nor "
+                     "states-first dense")
+
+
+def _check_spo_args(fn, op, psi, op_shape):
+    if psi.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{fn}: psi must be complex128 or complex64, got "
+                        f"{psi.dtype}")
+    if op.dtype != psi.dtype:
+        raise TypeError(f"{fn}: operator is {op.dtype}, psi is {psi.dtype}")
+    if psi.dim() < 2:
+        raise ValueError(f"{fn}: psi must be grid_shape + (ns,), got "
+                         f"{tuple(psi.shape)}")
+    if tuple(op.shape) != tuple(op_shape):
+        raise ValueError(f"{fn}: operator {tuple(op.shape)} does not match "
+                         f"psi {tuple(psi.shape)}; expected "
+                         f"{tuple(op_shape)}")
+    if op.device != psi.device:
+        raise ValueError(f"{fn}: operator is on {op.device}, psi on "
+                         f"{psi.device}")
+    if not op.is_contiguous():
+        raise ValueError(f"{fn}: the operator must be contiguous")
+    layout = _spo_layout(fn, psi)
+    if psi.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for device {psi.device}")
+    return layout
+
+
+def _launch_spo(kind, wrapper, op, psi, layout):
+    """Launch ``csrc/spo.cu``'s ``kind`` kernel into a new output of psi's
+    layout, check the launch, and count it on ``wrapper``."""
+    from . import _cuda_lib
+    npts, ns, sp, ss = layout
+    lib = _cuda_lib.load("spo").lib
+    fn = getattr(lib, kind + ("_c128" if psi.dtype == torch.complex128
+                              else "_c64"))
+    out = torch.empty_strided(psi.shape, psi.stride(), dtype=psi.dtype,
+                              device=psi.device)
+    if npts == 0 or ns == 0:
+        return out
+    with torch.cuda.device(psi.device):
+        err = fn(op.data_ptr(), psi.data_ptr(), out.data_ptr(), npts, ns,
+                 sp, ss, torch.cuda.current_stream(psi.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kind}: kernel launch failed with CUDA error "
+                           f"{err}")
+    wrapper.launches += 1
+    return out
+
+
+def spo_phase_multiply(expK, psik):
+    """Kinetic phase multiply ψ_k ← expK ⊙ ψ_k over all electronic states.
+
+    Replaces the Pallas kernel of the JAX package
+    (``pyqed_tpu/ops/pallas_kernels.py:267-306``). expK: grid-shaped
+    complex; psik: grid_shape + (ns,) of expK's dtype (complex128 or
+    complex64), states last or states first in memory (the layout a
+    batched FFT over the grid axes returns); the result has psik's
+    layout. On the CPU this is :func:`spo_phase_multiply_ref`; on CUDA it
+    launches ``csrc/spo.cu`` (counted in ``spo_phase_multiply.launches``)
+    or raises.
+    """
+    fn = "spo_phase_multiply"
+    layout = _check_spo_args(fn, expK, psik, psik.shape[:-1])
+    if psik.device.type == "cpu":
+        return spo_phase_multiply_ref(expK, psik)
+    return _launch_spo("spo_phase", spo_phase_multiply, expK, psik, layout)
+
+
+spo_phase_multiply.launches = 0
+
+
+def spo_potential_apply(expV, psi):
+    """Potential propagator ψ[p] ← expV[p] @ ψ[p] at every grid point p.
+
+    Replaces the Pallas kernel of the JAX package
+    (``pyqed_tpu/ops/pallas_kernels.py:309-357``). expV: contiguous
+    grid_shape + (ns, ns), row-major blocks as the solver stores them;
+    psi: grid_shape + (ns,) of expV's dtype (complex128 or complex64),
+    states last or states first in memory; the result has psi's layout.
+    On the CPU this is :func:`spo_potential_apply_ref`; on CUDA it
+    launches ``csrc/spo.cu`` (counted in ``spo_potential_apply.launches``)
+    or raises.
+    """
+    fn = "spo_potential_apply"
+    ns = psi.shape[-1] if psi.dim() else 0
+    layout = _check_spo_args(fn, expV, psi, tuple(psi.shape) + (ns,))
+    if psi.device.type == "cpu":
+        return spo_potential_apply_ref(expV, psi)
+    return _launch_spo("spo_potential", spo_potential_apply, expV, psi,
+                       layout)
+
+
+spo_potential_apply.launches = 0

@@ -216,7 +216,8 @@ def test_fmo_model_builds_the_jax_operators():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_array_equal(m.initial_state(3).numpy(),
                                   np.asarray(jm.initial_state(3)))
-    ts = m.heom(temperature=300.0, lmax=3, nexp=1, decomposition="pade")
+    ts = m.heom(temperature=300.0, lmax=3, nexp=1, decomposition="pade",
+                device="cpu")
     js = jm.heom(temperature=300.0, lmax=3, nexp=1, decomposition="pade")
     assert len(ts._modes) == len(js._modes) == 14
     for (Qa, ca, nua), (Qb, cb, nub) in zip(ts._modes, js._modes):
@@ -262,10 +263,22 @@ def test_port_never_imports_jax():
         "b = pt.DrudeBath(temperature=1.0, cutoff=0.5, reorg=0.1)\n"
         "c, nu = b.matsubara(1)\n"
         "for k in ('einsum', 'matmul', 'levels', 'cuda'):\n"
-        "    r = pt.HEOMSolver(H, bath=[(Q, c, nu)], lmax=3).run(\n"
+        "    r = pt.HEOMSolver(H, bath=[(Q, c, nu)], lmax=3,\n"
+        "                      device='cpu').run(\n"
         "        np.diag([1.0, 0.0]), dt=0.01, nt=20, nout=5,\n"
         "        e_ops=[np.eye(2)], kernel=k)\n"
         "    assert abs(r.observables[-1, 0].item() - 1) < 1e-12\n"
+        "import pyqed_tpu_torch.grid as grid\n"
+        "x = np.linspace(-8, 8, 32, endpoint=False)\n"
+        "for k in ('cuda', 'xla'):\n"
+        "    s = grid.SPO2(x, x, nstates=2, kernel=k, device='cpu')\n"
+        "    s.set_DPES([0.5 * s.X ** 2, 0.5 * s.Y ** 2 + 1.0],\n"
+        "               [[(0, 1), 0.1 + 0 * s.X]])\n"
+        "    psi = np.zeros((32, 32, 2), complex)\n"
+        "    psi[..., 0] = np.exp(-s.X ** 2 - s.Y ** 2)\n"
+        "    r = s.run(psi / np.sqrt(s.norm(psi).item()), dt=0.02, nt=10,\n"
+        "              nout=5)\n"
+        "    assert abs(r.population[-1].sum().item() - 1) < 1e-12\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "               'pyqed_tpu.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n")
@@ -278,13 +291,25 @@ def test_port_never_imports_jax():
 
 # ---------------------------------------------------------------- (vii)
 def test_cuda_device_without_card_raises():
+    """Entry points default to the card; without one they raise, whether
+    CUDA is asked for or left to the default."""
     if torch.cuda.is_available():
         assert resolve_device("cuda").type == "cuda"
+        assert resolve_device(None).type == "cuda"
         return
-    with pytest.raises(RuntimeError):
-        resolve_device("cuda")
-    with pytest.raises(RuntimeError):
-        pt.FMO().heom(lmax=1, device="cuda")
+    H = np.diag([0.0, 1.0])
+    bath = [(np.diag([1.0, -1.0]), [0.1], [0.5])]
+    x = np.linspace(-1, 1, 8)
+    for make in (lambda: resolve_device("cuda"),
+                 lambda: resolve_device(None),
+                 lambda: pt.FMO().heom(lmax=1, device="cuda"),
+                 lambda: pt.FMO().heom(lmax=1),
+                 lambda: HEOMSolver(H, bath),
+                 lambda: pt.SPO(x),
+                 lambda: pt.SPO3(x, x, x, device="cuda")):
+        with pytest.raises(RuntimeError):
+            make()
+    assert resolve_device("cpu").type == "cpu"
 
 
 def test_auto_kernel_on_cpu_is_einsum_and_launches_nothing():
@@ -309,7 +334,8 @@ def _unported(case):
         "drive": lambda: ts.run(rho0, edip=np.eye(3), pulse=lambda t: 0.0,
                                 **run),
         "levels-fast": lambda: ts.run(rho0, kernel="levels-fast", **run),
-        "matmul-fast": lambda: HEOMSolver(np.eye(2), kernel="matmul-fast"),
+        "matmul-fast": lambda: HEOMSolver(np.eye(2), kernel="matmul-fast",
+                                          device="cpu"),
         "correlation_3op_1t": lambda: ts.correlation_3op_1t(
             rho0, [np.eye(3)] * 3, 0.1, 2),
         "correlation_2op_1t": lambda: ts.correlation_2op_1t(
@@ -337,4 +363,4 @@ def test_unported_options_raise(case):
 
 def test_unknown_kernel_raises():
     with pytest.raises(ValueError):
-        HEOMSolver(np.eye(2), kernel="triton")
+        HEOMSolver(np.eye(2), kernel="triton", device="cpu")
