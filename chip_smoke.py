@@ -9,8 +9,9 @@ Phases, one or more lines each; any failure raises and the exit code is
 nonzero:
 
 1. environment: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: compiles csrc/heom_coupling.cu and csrc/spo.cu with nvcc, one
-   process each, started together, and prints their -Xptxas -v reports;
+2. build: compiles csrc/heom_coupling.cu, csrc/spo.cu and
+   csrc/liouvillian.cu with nvcc, one process each, started together, and
+   prints their -Xptxas -v reports;
 3. kernel parity, each CUDA kernel against its plain PyTorch version,
    complex128 (rel <= 1e-12) and complex64 (rel <= 1e-5):
    - the HEOM coupling at the FMO flagship shape (680 ADOs, V = 49) and
@@ -18,6 +19,8 @@ nonzero:
    - the SPO phase multiply and potential apply at the 256^3 x 2-state
      chip shape (states-first, the layout of the FFT on the main path)
      and at a ragged 37 x 41 x 29 x 3-state shape in both layouts;
+   - the Liouvillian commutator at n = 16, 37, 1000 and 1024 on random
+     non-Hermitian H_eff and rho;
 4. main paths, each driven with every launch count set to 0 just before
    and read just after:
    - HEOM: FMO().heom(..., device='cuda').run(...) for 4000 steps of
@@ -32,11 +35,25 @@ nonzero:
      the first 10 steps at 64^3 against a NumPy complex128 Strang loop
      (<= 1e-10); the 1-D Morse model of examples/spo_morse.py (512
      points) through the kernels and through kernel='dft' (<= 1e-10);
+   - Lindblad, config #2 (bench.py's vibronic dimer, n = 16):
+     LindbladSolver.run for 4000 RK4 steps of 0.002 through the
+     commutator kernel (launch count 4 x Nt, trace drift <= 1e-12,
+     window by window against method='propagator' <= 1e-10 and against
+     SciPy's expm of the dense Liouvillian <= 1e-8), then
+     method='propagator' for the bench's 400,000 steps (trace drift);
+   - Lindblad at chip scale (the same builder at nvib = 512, n = 1024):
+     200 steps through the kernel (launch count 4 x Nt) and with
+     kernel='matmul' (rel <= 1e-12 on rho and the observables, trace
+     drift <= 1e-10);
+   - Redfield: FMO().redfield() on the card against the same run on the
+     CPU (<= 1e-10);
 5. timing, for the record (CUDA events after warm-up, in turns): kernel,
    plain version and one-call PyTorch yardstick per call; run() steps/s
-   for every right-hand side (HEOM) and for cuda and xla (SPO 256^3);
-   SPO build() seconds, a torch.profiler breakdown of the 256^3 Strang
-   step, and peak device memory.
+   for every right-hand side (HEOM), for cuda and xla (SPO 256^3), and
+   for cuda, matmul and propagator (Lindblad n = 16) and cuda and matmul
+   (n = 1024); SPO build() seconds, torch.profiler breakdowns of the
+   256^3 Strang step and of the n = 1024 Lindblad RK4 step, and peak
+   device memory.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
@@ -65,6 +82,17 @@ SPO_NOUT = 20
 RAGGED = (37, 41, 29)
 MORSE_NT = 10000   # examples/spo_morse.py: 10000 steps of 0.02
 
+LB_NVIB = 8        # config #2 as bench.py builds it: n = 2 * 8 = 16
+LB_DT = 0.002
+LB_NT = 4000
+LB_NOUT = 50
+LB_BENCH_NT = 400000   # bench.py's bench_lindblad_tpu: 400,000 steps
+LB_BIG_NVIB = 512  # chip scale: n = 1024
+LB_BIG_NT = 200
+LB_BIG_NOUT = 20
+COMM_SIZES = (16, 37, 1000, 1024)
+COMM_TIME_SIZES = (1024, 2048)
+
 # H100 SXM data sheet: HBM3 bytes/s; flop/s of FP64 (tensor cores) and of
 # FP32 (outside them), both 67e12
 PEAK_BYTES = 3.35e12
@@ -87,7 +115,8 @@ def kernel_wrappers():
     from pyqed_tpu_torch.ops import kernels as kn
     return {"heom_coupling": kn.heom_coupling,
             "spo_phase": kn.spo_phase_multiply,
-            "spo_potential": kn.spo_potential_apply}
+            "spo_potential": kn.spo_potential_apply,
+            "liouvillian_commutator": kn.liouvillian_commutator}
 
 
 def reset_counts():
@@ -295,7 +324,7 @@ def checked_run(m, sol, nt, label):
         f"{trace_err:.2e}, |kernel - einsum| {diff:.2e}, final populations "
         + " ".join(f"{x:.4f}" for x in p))
     if counts != {"heom_coupling": 4 * nt, "spo_phase": 0,
-                  "spo_potential": 0}:
+                  "spo_potential": 0, "liouvillian_commutator": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected "
                              f"heom_coupling {4 * nt} and no other")
     if not trace_err <= 1e-10:
@@ -418,7 +447,7 @@ def phase_spo_main():
         f"norm drift {drift:.2e}, |cuda - xla| rel psi {d_psi:.2e} "
         f"rho_el {d_rho:.2e}, final populations {p[0]:.6f} {p[1]:.6f}")
     if counts != {"heom_coupling": 0, "spo_phase": SPO_NT,
-                  "spo_potential": 2 * SPO_NT}:
+                  "spo_potential": 2 * SPO_NT, "liouvillian_commutator": 0}:
         raise AssertionError(f"SPO3: launches {counts}")
     if not drift <= 1e-10:
         raise AssertionError(f"SPO3: norm drift {drift:.3e}")
@@ -676,6 +705,345 @@ def phase_spo_timing(card, sol, psi0):
     return times
 
 
+# ------------------------------------------------------ Lindblad slice
+def vibronic_dimer(nvib):
+    """Config #2 as bench.py's _vibronic_dimer builds it: 2 electronic
+    states x nvib vibrational levels (n = 2 nvib), one jump operator
+    lowering the vibrational level in both states."""
+    n = 2 * nvib
+    w0, de, g = 0.2, 1.0, 0.15
+    H = np.zeros((n, n))
+    for s in range(2):
+        for v in range(nvib):
+            H[s * nvib + v, s * nvib + v] = s * de + w0 * v
+    for v in range(nvib - 1):
+        H[nvib + v, v + 1] = H[v + 1, nvib + v] = g
+    c = np.zeros((n, n))
+    for v in range(1, nvib):
+        c[v - 1, v] = 0.1 * np.sqrt(v)
+        c[nvib + v - 1, nvib + v] = 0.1 * np.sqrt(v)
+    return H, c
+
+
+def dimer_problem(nvib):
+    """H, c, rho0 = |n/2><n/2| (bench.py) and the e_ops: every level
+    population at n <= 64, the two electronic populations above."""
+    H, c = vibronic_dimer(nvib)
+    n = 2 * nvib
+    rho0 = np.zeros((n, n))
+    rho0[n // 2, n // 2] = 1.0
+    if n <= 64:
+        e_ops = [np.diag(np.eye(n)[k]) for k in range(n)]
+    else:
+        e_ops = [np.diag((np.arange(n) < nvib).astype(float)),
+                 np.diag((np.arange(n) >= nvib).astype(float))]
+    return H, c, rho0, e_ops
+
+
+def commutator_inputs(n, dtype, seed=SEED):
+    """Random non-Hermitian H_eff and rho on the card, from a numpy seed."""
+    rng = np.random.default_rng(seed + n)
+    rdt = np.float64 if dtype == torch.complex128 else np.float32
+
+    def crand():
+        re = torch.from_numpy(rng.standard_normal((n, n), dtype=rdt))
+        im = torch.from_numpy(rng.standard_normal((n, n), dtype=rdt))
+        return torch.complex(re, im).to(DEVICE)
+
+    return crand(), crand()
+
+
+def commutator_bound(n, dtype):
+    """Bytes (H_eff and rho read once, out written once) and flops (two
+    complex n^3 products, 8 real flops per complex MAC) of one call."""
+    c = 16 if dtype == torch.complex128 else 8
+    return bound_ms(3 * n * n * c, 16 * n ** 3)
+
+
+def commutator_library(Heff, rho):
+    """The yardstick (the port never calls it): two cuBLAS products."""
+    return torch.matmul(Heff, rho) - torch.matmul(rho, Heff.mH)
+
+
+def phase_lindblad_parity():
+    from pyqed_tpu_torch.ops import kernels as kn
+    errs = {}
+    for n in COMM_SIZES:
+        for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64, 1e-5)):
+            Heff, rho = commutator_inputs(n, dtype)
+            out = kn.liouvillian_commutator(Heff, rho)
+            errs[(n, dtype)] = check_close(
+                f"liouvillian_commutator n={n} {str(dtype)[6:]}", out,
+                kn.liouvillian_commutator_ref(Heff, rho), tol)
+            del Heff, rho, out
+    return errs
+
+
+def np_liouvillian(H, cs):
+    """Dense row-major Liouvillian in NumPy (as tests/test_open.py)."""
+    n = H.shape[0]
+    eye = np.eye(n)
+    L = -1j * (np.kron(H, eye) - np.kron(eye, H.T))
+    for c in cs:
+        cd = c.conj().T
+        L = L + np.kron(c, c.conj()) - 0.5 * (np.kron(cd @ c, eye)
+                                              + np.kron(eye, (cd @ c).T))
+    return L
+
+
+def counted_run(sol, rho0, label, **kw):
+    """sol.run(rho0, **kw) with every launch count set to 0 just before
+    and read just after; returns (result, counts, wall seconds)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sol.run(rho0, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    obs = res.observables
+    if not (bool(torch.isfinite(torch.view_as_real(obs)).all()) and bool(
+            torch.isfinite(torch.view_as_real(res.rho)).all())):
+        raise AssertionError(f"{label}: non-finite values")
+    return res, counts, wall
+
+
+def expect_only(counts, name, n, label):
+    want = {k: 0 for k in counts}
+    want[name] = n
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {name} "
+                             f"{n} and no other")
+
+
+def phase_lindblad_main():
+    """Config #2 (n = 16) through the kernel, against the propagator
+    method and SciPy's expm; the bench's 400,000 propagator steps; the
+    n = 1024 run through the kernel and through kernel='matmul'. Returns
+    the launch count of the n = 1024 kernel run."""
+    import scipy.linalg
+    from pyqed_tpu_torch import LindbladSolver
+    H, c, rho0, e_ops = dimer_problem(LB_NVIB)
+    n = H.shape[0]
+    nwin = LB_NT // LB_NOUT
+    sol = LindbladSolver(H, [c], device=DEVICE)
+    kw = dict(dt=LB_DT, Nt=LB_NT, nout=LB_NOUT, e_ops=e_ops)
+    res, counts, wall = counted_run(sol, rho0, "config #2", **kw)
+    label = f"Lindblad config #2 n={n}"
+    expect_only(counts, "liouvillian_commutator", 4 * LB_NT, label)
+    obs = res.observables
+    if tuple(obs.shape) != (nwin + 1, n):
+        raise AssertionError(f"{label}: observables {tuple(obs.shape)}")
+    drift = (obs.real.sum(dim=1) - 1.0).abs().max().item()
+    prop = sol.run(rho0, method="propagator", **kw)
+    d_prop = max((obs - prop.observables).abs().max().item(),
+                 (res.rho - prop.rho).abs().max().item())
+    # SciPy: exact exp(L dt nout) of the dense Liouvillian, window by window
+    M = scipy.linalg.expm(np_liouvillian(H, [c]) * LB_DT * LB_NOUT)
+    v = rho0.reshape(-1).astype(complex)
+    exact = [np.diagonal(rho0).real]
+    for _ in range(nwin):
+        v = M @ v
+        exact.append(np.diagonal(v.reshape(n, n)).real)
+    d_exp = float(np.max(np.abs(obs.real.cpu().numpy() - np.array(exact))))
+    p = obs[-1].real.cpu().numpy()
+    log(f"[main] {label} Nt={LB_NT} dt={LB_DT} in {wall:.2f} s, kernel "
+        f"launches {counts} (expected liouvillian_commutator {4 * LB_NT}), "
+        f"trace drift {drift:.2e}, |rk4 - propagator| {d_prop:.2e}, "
+        f"|rk4 - scipy expm| {d_exp:.2e}, final electronic populations "
+        f"{p[:n // 2].sum():.6f} {p[n // 2:].sum():.6f}")
+    if not drift <= 1e-12:
+        raise AssertionError(f"{label}: trace drift {drift:.3e}")
+    if not d_prop <= 1e-10:
+        raise AssertionError(f"{label}: rk4 and propagator differ by "
+                             f"{d_prop:.3e}")
+    if not d_exp <= 1e-8:
+        raise AssertionError(f"{label}: rk4 and expm differ by {d_exp:.3e}")
+
+    long, counts, wall = counted_run(
+        sol, rho0, "config #2 propagator", dt=LB_DT, Nt=LB_BENCH_NT,
+        nout=LB_NOUT, e_ops=e_ops, method="propagator")
+    expect_only(counts, "liouvillian_commutator", 0, "propagator")
+    drift_l = (long.observables.real.sum(dim=1) - 1.0).abs().max().item()
+    p = long.observables[-1].real.cpu().numpy()
+    log(f"[main] {label} method='propagator' Nt={LB_BENCH_NT} "
+        f"({LB_BENCH_NT // LB_NOUT} windows) in {wall:.2f} s, trace drift "
+        f"{drift_l:.2e}, final electronic populations "
+        f"{p[:n // 2].sum():.6f} {p[n // 2:].sum():.6f}")
+    if not drift_l <= 1e-10:
+        raise AssertionError(f"propagator: trace drift {drift_l:.3e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    H, c, rho0, e_ops = dimer_problem(LB_BIG_NVIB)
+    n = H.shape[0]
+    label = f"Lindblad chip scale n={n}"
+    kw = dict(dt=LB_DT, Nt=LB_BIG_NT, nout=LB_BIG_NOUT, e_ops=e_ops)
+    big = LindbladSolver(H, [c], device=DEVICE)
+    res, counts, wall = counted_run(big, rho0, label, **kw)
+    launches = counts["liouvillian_commutator"]
+    expect_only(counts, "liouvillian_commutator", 4 * LB_BIG_NT, label)
+    res_m, counts_m, wall_m = counted_run(
+        LindbladSolver(H, [c], kernel="matmul", device=DEVICE), rho0,
+        label + " matmul", **kw)
+    expect_only(counts_m, "liouvillian_commutator", 0, label + " matmul")
+    d_rho = rel(res.rho, res_m.rho)
+    d_obs = rel(res.observables, res_m.observables)
+    drift = max((res.observables.real.sum(dim=1) - 1.0).abs().max().item(),
+                abs(torch.trace(res.rho).item() - 1.0))
+    p = res.observables[-1].real.cpu().numpy()
+    log(f"[main] {label} Nt={LB_BIG_NT} in {wall:.2f} s (kernel) and "
+        f"{wall_m:.2f} s (matmul), kernel launches {counts} (expected "
+        f"liouvillian_commutator {4 * LB_BIG_NT}), |cuda - matmul| rel rho "
+        f"{d_rho:.2e} observables {d_obs:.2e}, trace drift {drift:.2e}, "
+        f"final electronic populations {p[0]:.6f} {p[1]:.6f}")
+    if not (d_rho <= 1e-12 and d_obs <= 1e-12):
+        raise AssertionError(f"{label}: cuda and matmul runs differ: rho "
+                             f"{d_rho:.3e}, observables {d_obs:.3e}")
+    if not drift <= 1e-10:
+        raise AssertionError(f"{label}: trace drift {drift:.3e}")
+    log(f"[main] {label} peak device memory of the two runs "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+        "above what earlier phases hold")
+    return launches
+
+
+def phase_redfield():
+    """FMO().redfield() on the card against the same run on the CPU."""
+    from pyqed_tpu_torch import FMO
+    m = FMO()
+    kw = dict(dt=DT, Nt=2000, nout=NOUT, e_ops=m.site_projectors())
+    res, counts, wall = counted_run(m.redfield(device=DEVICE),
+                                    m.initial_state(0), "Redfield", **kw)
+    expect_only(counts, "liouvillian_commutator", 0, "Redfield")
+    cpu = m.redfield(device="cpu").run(m.initial_state(0), **kw)
+    d = max((res.observables.cpu() - cpu.observables).abs().max().item(),
+            (res.rho.cpu() - cpu.rho).abs().max().item())
+    drift = (res.observables.real.sum(dim=1) - 1.0).abs().max().item()
+    p = res.observables[-1].real.cpu().numpy()
+    log(f"[main] Redfield FMO n=7 (R 49 x 49) Nt=2000 dt={DT} in {wall:.2f} "
+        f"s, |card - cpu| {d:.2e} (tol 1e-10), trace drift {drift:.2e}, "
+        f"final populations " + " ".join(f"{x:.4f}" for x in p))
+    if not d <= 1e-10:
+        raise AssertionError(f"Redfield: card and CPU differ by {d:.3e}")
+
+
+def lindblad_steps_per_s(sol, rho0, e_ops, nout, short, long, **kw):
+    """run() steps/s from the difference of a long and a short run, so
+    the setup of run() cancels."""
+    walls = []
+    for steps in (short, long):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol.run(rho0, dt=LB_DT, Nt=steps, nout=nout, e_ops=e_ops, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (long - short) / (walls[1] - walls[0])
+
+
+def lindblad_profile(nvib, steps=5):
+    """Device time per RK4 step at chip scale by kernel name, and the
+    number of kernels of each name in the profiled steps (torch.profiler,
+    device events only)."""
+    from pyqed_tpu_torch.core.dynamics import rk4_step
+    from pyqed_tpu_torch.ops.kernels import liouvillian_matvec
+    H, c, rho0, _ = dimer_problem(nvib)
+    dev = torch.device(DEVICE)
+    Ht = torch.as_tensor(H, dtype=torch.complex128, device=dev)
+    ct = torch.as_tensor(c, dtype=torch.complex128, device=dev)
+    step = rk4_step(liouvillian_matvec(Ht, [ct]))
+    rho = torch.as_tensor(rho0, dtype=torch.complex128, device=dev)
+    for _ in range(2):
+        rho = step(rho, 0.0, LB_DT)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            rho = step(rho, 0.0, LB_DT)
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / steps, evt.count, evt.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows
+
+
+def phase_lindblad_timing(card):
+    from pyqed_tpu_torch import LindbladSolver
+    from pyqed_tpu_torch.ops import kernels as kn
+    times = {}
+    for n in COMM_TIME_SIZES:
+        for dtype in (torch.complex128, torch.complex64):
+            args = commutator_inputs(n, dtype)
+            kern = kn.liouvillian_commutator
+            plain = kn.liouvillian_commutator_ref
+            iters = 20 if n <= 1024 else 6
+            t = dict(plain=[], kernel=[], library=[])
+            for which, fn in (("plain", plain), ("kernel", kern),
+                              ("library", commutator_library),
+                              ("kernel", kern), ("plain", plain)):
+                t[which].append(event_ms(fn, args, iters=iters, warmup=3))
+            b = commutator_bound(n, dtype)
+            times[(n, dtype)] = dict(
+                ms=min(t["kernel"]), plain_ms=min(t["plain"]),
+                library_ms=t["library"][0], bound=b)
+            log(f"[time] liouvillian_commutator n={n} {str(dtype)[6:]}: "
+                "kernel " + " / ".join(f"{x:.3f}" for x in t["kernel"])
+                + " ms, plain " + " / ".join(f"{x:.3f}" for x in t["plain"])
+                + f" ms, library {t['library'][0]:.3f} ms, bound "
+                f"{b[0]:.3f} ms ({b[1]}); kernel at "
+                f"{16 * n ** 3 / min(t['kernel']) / 1e9:.1f} TFLOP/s "
+                f"({card})")
+            del args
+    # run() steps/s, in turns
+    H, c, rho0, e_ops = dimer_problem(LB_NVIB)
+    sols = {k: LindbladSolver(H, [c], kernel=k, device=DEVICE)
+            for k in ("cuda", "matmul")}
+    order = ["cuda", "matmul", "propagator"]
+    rates = {k: [] for k in order}
+    for k in order + order[::-1]:
+        if k == "propagator":
+            rates[k].append(lindblad_steps_per_s(
+                sols["cuda"], rho0, e_ops, LB_NOUT, 20000, LB_BENCH_NT,
+                method="propagator"))
+        else:
+            rates[k].append(lindblad_steps_per_s(
+                sols[k], rho0, e_ops, LB_NOUT, 200, 2000))
+    for k in order:
+        log(f"[time] run() Lindblad config #2 n=16 complex128 "
+            f"kernel/method={k}: " + ", ".join(f"{r:.0f}" for r in rates[k])
+            + f" steps/s ({card})")
+    H, c, rho0, e_ops = dimer_problem(LB_BIG_NVIB)
+    sols = {k: LindbladSolver(H, [c], kernel=k, device=DEVICE)
+            for k in ("cuda", "matmul")}
+    rates = {k: [] for k in sols}
+    for k in ["cuda", "matmul", "matmul", "cuda"]:
+        rates[k].append(lindblad_steps_per_s(
+            sols[k], rho0, e_ops, LB_BIG_NOUT, LB_BIG_NOUT, 100))
+    for k in sols:
+        log(f"[time] run() Lindblad n=1024 complex128 kernel={k}: "
+            + ", ".join(f"{r:.2f}" for r in rates[k]) + f" steps/s ({card})")
+    steps = 5
+    total, rows = lindblad_profile(LB_BIG_NVIB, steps)
+    busy = total / 1e3 * max(rates["cuda"]) / 1e3
+    log(f"[time] Lindblad n=1024 RK4 step, kernel=cuda, torch.profiler over "
+        f"{steps} steps: device {total / 1e3:.3f} ms per step; busy share "
+        f"against the fastest unprofiled run() {busy:.2f} ({card})")
+    for us, count, key in rows[:10]:
+        log(f"[time]   {us / 1e3:8.3f} ms per step, {count:3d} kernels "
+            f"{key[:80]}")
+    log(f"[time] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB ({card})")
+    return times
+
+
 def main():
     card = phase_environment()
     import pyqed_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -685,12 +1053,17 @@ def main():
               "chain8": chain_solver()}
     errs = phase_parity(shapes)
     spo_errs = phase_spo_parity()
+    lb_errs = phase_lindblad_parity()
     launches = phase_main()
     spo_counts, spo_sol, spo_psi0 = phase_spo_main()
     phase_spo_numpy_check()
     phase_morse()
+    lb_launches = phase_lindblad_main()
+    phase_redfield()
     times = phase_timing(card, shapes)
     spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
+    del spo_sol, spo_psi0
+    lb_times = phase_lindblad_timing(card)
     t_kern, t_plain, (b_ms, b_by) = times[("fmo", torch.complex128)]
     kernels = [{
         "name": "heom_coupling",
@@ -723,6 +1096,21 @@ def main():
             "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })
+    n_big = 2 * LB_BIG_NVIB
+    t = lb_times[(n_big, torch.complex128)]
+    kernels.append({
+        "name": "liouvillian_commutator",
+        "route": "cuda",
+        "source": "pyqed_tpu_torch/csrc/liouvillian.cu",
+        "replaces": "pyqed_tpu/ops/pallas_kernels.py:364",
+        "launches": lb_launches,
+        "max_abs_err": lb_errs[(n_big, torch.complex128)],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1],
+        "library_ms": t["library_ms"],
+    })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,13 @@ Ported so far:
 - the split-operator wavepacket path (``SPO``, ``SPO2``, ``SPO3``,
   ``SPON``, ``SPO2NH``, ``ResultSPO``, ``gwp``), with the kinetic phase
   multiply and the potential apply as hand-written CUDA kernels
-  (``csrc/spo.cu``).
+  (``csrc/spo.cu``);
+- the Lindblad/Redfield path (``LindbladSolver``, ``LiouvilleSolver``,
+  ``RedfieldSolver``, ``redfield_tensor``, ``FMO.redfield``) with the
+  operator algebra it stands on (``ops/linalg``, ``ops/operators``,
+  ``ops/superoperator``, ``ops/expm``, ``core/dynamics``), and the
+  Liouvillian commutator −i(H_eff ρ − ρ H_eff†) as a hand-written CUDA
+  kernel (``csrc/liouvillian.cu``).
 
 Entry points run on the card (``device=None`` means ``cuda`` and raises
 without one) unless the caller passes ``device="cpu"``. The package
@@ -24,3 +30,32 @@ from .open.bath import DrudeBath
 from .open.heom import HEOMSolver, solver_from_reference
 from .grid import SPO, SPO2, SPO3, SPON, SPO2NH, ResultSPO
 from .ops.wavepacket import gwp
+from .config import default_complex, default_real
+from .open.lindblad import (LindbladSolver, LiouvilleSolver, Lindblad_solver,
+                            driven_dissipative_dynamics, absorption_eseries)
+from .open.redfield import RedfieldSolver, redfield_tensor
+from .ops.linalg import (
+    dag, dagger, commutator, comm, anticommutator, anticomm, tensor,
+    tensor_power, ptrace, transform, basis_transform, obs, obs_dm, expect,
+    overlap, ket2dm, norm, rk4, isherm, isunitary, isdiag, project, sort_eig,
+    eigh, eig_asymm, lindbladian, ldo,
+)
+from .ops.linalg import sort_eig as sort   # reference: pyqed/phys.py:554
+from .ops.operators import (
+    pauli, sigmax, sigmay, sigmaz, sigmam, sigmap, destroy, create, basis,
+    coh_op, jump, ham_ho, boson, quadrature, position, momentum, num,
+    thermal_dm, spin_ops, multispin, multiboson, multimode, delta,
+    displace, coherent, coherent_dm, lowering, raising, multi_spin, norm2,
+    is_positive_def, direct_product, jacobi_anger, propagator,
+    propagator_H_const,
+)
+from .ops.superoperator import (
+    dm2vec, vec2dm, vec2mat, operator_to_vector, left, right,
+    operator_to_superoperator, op2sop, to_super, lindblad_dissipator, kraus,
+    liouvillian, liouvillian_action, lindbladian_action, obs_vec, trace_vec,
+    resolvent,
+)
+from .ops.expm import (
+    expm_eig, expm_herm, propagators, expm_multiply_taylor,
+    krylov_expm_multiply, chebyshev_expm_multiply, expm,
+)

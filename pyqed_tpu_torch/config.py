@@ -40,6 +40,18 @@ def complex_dtype_for(*arrays) -> torch.dtype:
     return torch.complex128
 
 
+def default_real() -> torch.dtype:
+    """The real dtype a constructor uses when none is given: float64, as
+    the JAX package's ``default_real()`` under x64."""
+    return torch.float64
+
+
+def default_complex() -> torch.dtype:
+    """The complex dtype a constructor uses when none is given:
+    complex128, as the JAX package's ``default_complex()`` under x64."""
+    return torch.complex128
+
+
 def real_dtype_of(dtype: torch.dtype) -> torch.dtype:
     """float64 for complex128, float32 for complex64."""
     return torch.float64 if dtype == torch.complex128 else torch.float32

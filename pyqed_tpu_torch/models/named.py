@@ -1,7 +1,8 @@
 """Named model systems (PyTorch): the FMO exciton model.
 
-PyTorch counterpart of ``FMO`` in ``pyqed_tpu/models/named.py``; the other
-named models are not yet ported.
+PyTorch counterpart of ``FMO`` in ``pyqed_tpu/models/named.py`` (its
+``heom`` and ``redfield`` solvers); the other named models are not yet
+ported.
 """
 from __future__ import annotations
 
@@ -65,6 +66,17 @@ class FMO:
         return HEOMSolver(self.H, bath=self._bath(temperature), lmax=lmax,
                           decomposition=decomposition, nexp=nexp,
                           device=device, **kw)
+
+    def redfield(self, temperature=300.0, nexp=30, device=None):
+        """RedfieldSolver with the SAME exponential bath modes as
+        :meth:`heom` (spectra built from the converged Matsubara series,
+        so a weak-coupling comparison isolates the method, not the
+        decomposition), on ``device``: the card when None (raises
+        without one), ``"cpu"`` on request."""
+        from ..open.redfield import RedfieldSolver
+        Gamma = self._bath(temperature).redfield_spectrum(nexp=nexp)
+        return RedfieldSolver(self.H, c_ops=self.site_projectors(),
+                              spectra=[Gamma] * self.nsites, device=device)
 
     def initial_state(self, site=0):
         rho0 = np.zeros((self.nsites, self.nsites), dtype=complex)

@@ -2,3 +2,6 @@ from .bath import DrudeBath, OhmicBath, Env, pade_poles_bose, bose, \
     bath_correlation_from_spectral_density, prony_decomposition
 from .heom import (HEOMSolver, HEOMSolverDrude, enumerate_hierarchy,
                    neighbor_maps, solver_from_reference)
+from .lindblad import (LindbladSolver, LiouvilleSolver, Lindblad_solver,
+                       driven_dissipative_dynamics, absorption_eseries)
+from .redfield import RedfieldSolver, redfield_tensor

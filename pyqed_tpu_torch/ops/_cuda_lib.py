@@ -45,6 +45,10 @@ SIGNATURES = {
         "spo_potential_c128": _SPO,
         "spo_potential_c64": _SPO,
     },
+    "liouvillian": {
+        "liouvillian_commutator_c128": (_P, _P, _P, _I, _P),
+        "liouvillian_commutator_c64": (_P, _P, _P, _I, _P),
+    },
 }
 
 

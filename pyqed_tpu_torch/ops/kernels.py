@@ -1,10 +1,13 @@
-"""HEOM right-hand-side operators, the split-operator step, and their
-hand-written CUDA kernels.
+"""HEOM right-hand-side operators, the split-operator step, the
+Liouvillian matvec, and their hand-written CUDA kernels.
 
-PyTorch counterpart of ``pyqed_tpu/ops/pallas_kernels.py`` §(a) HEOM and
-§(b) split operator. The split-operator half (at the end of this module)
+PyTorch counterpart of ``pyqed_tpu/ops/pallas_kernels.py`` §(a) HEOM,
+§(b) split operator and §(c) Liouvillian matvec. The split-operator part
 holds :func:`spo_phase_multiply` and :func:`spo_potential_apply`, the
-wrappers of ``csrc/spo.cu``, each with its plain version beside it.
+wrappers of ``csrc/spo.cu``; the Liouvillian part (at the end of this
+module) holds :func:`liouvillian_commutator`, the wrapper of
+``csrc/liouvillian.cu``, and :func:`liouvillian_matvec`. Each wrapper has
+its plain version beside it.
 
 HEOM (reference semantics: pyqed/heom/deom.py:641-673 ``rem_cal``). With
 row-major vec(), left(A) = A ⊗ I and right(A) = I ⊗ Aᵀ act on vec(ρ), and
@@ -32,11 +35,15 @@ Contents:
   computes);
 - the split-operator kernels: :func:`spo_phase_multiply` and
   :func:`spo_potential_apply`, with plain versions
-  :func:`spo_phase_multiply_ref` and :func:`spo_potential_apply_ref`.
+  :func:`spo_phase_multiply_ref` and :func:`spo_potential_apply_ref`;
+- the Liouvillian commutator kernel :func:`liouvillian_commutator`, its
+  plain version :func:`liouvillian_commutator_ref`, and the matrix-free
+  Lindblad right-hand side :func:`liouvillian_matvec` built on it.
 
 The TPU workarounds of the JAX module are not carried over: operands stay
 complex (no real/imag planes), and nothing is padded to 8 rows or 128
-lanes (HEOM) or to tiles of 512 or 256 grid points (SPO). The hierarchy
+lanes (HEOM), to tiles of 512 or 256 grid points (SPO) or to multiples
+of 128 (the commutator). The hierarchy
 enumeration is level-graded, so without padding the level layout is the
 compact ``(nado, n·n)`` layout itself.
 """
@@ -584,3 +591,109 @@ def spo_potential_apply(expV, psi):
 
 
 spo_potential_apply.launches = 0
+
+
+# =====================================================================
+# the Liouvillian commutator kernel
+# =====================================================================
+
+def liouvillian_commutator_ref(Heff, rho):
+    """Plain version of :func:`liouvillian_commutator`:
+    −i(H_eff ρ − ρ H_eff†)."""
+    return -1j * (Heff @ rho - rho @ Heff.mH)
+
+
+def _check_commutator_args(Heff, rho):
+    fn = "liouvillian_commutator"
+    if rho.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{fn}: rho must be complex128 or complex64, got "
+                        f"{rho.dtype}")
+    if Heff.dtype != rho.dtype:
+        raise TypeError(f"{fn}: Heff is {Heff.dtype}, rho is {rho.dtype}")
+    if rho.dim() != 2 or rho.shape[0] != rho.shape[1] or (
+            tuple(Heff.shape) != tuple(rho.shape)):
+        raise ValueError(f"{fn}: Heff {tuple(Heff.shape)} and rho "
+                         f"{tuple(rho.shape)} must be one square (n, n)")
+    if Heff.device != rho.device:
+        raise ValueError(f"{fn}: Heff is on {Heff.device}, rho on "
+                         f"{rho.device}")
+    for name, x in (("Heff", Heff), ("rho", rho)):
+        if not x.is_contiguous() or x.is_conj() or x.is_neg():
+            raise ValueError(f"{fn}: {name} must be contiguous, with no "
+                             "lazy conjugate or negative view")
+    if rho.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for device {rho.device}")
+
+
+def liouvillian_commutator(Heff, rho):
+    """Coherent part of the Lindblad right-hand side,
+    out = −i(H_eff ρ − ρ H_eff†), with H_eff non-Hermitian.
+
+    Replaces the Pallas kernel of the JAX package
+    (``pyqed_tpu/ops/pallas_kernels.py:364-418``), which tiles 128×128
+    outputs over full row and column panels of real/imaginary planes
+    padded to multiples of 128. ``csrc/liouvillian.cu`` keeps the operands
+    interleaved complex and unpadded and reads H_eff† as the conjugate
+    transpose of H_eff: 64×64 output tiles, both products in one
+    accumulator, 16 n³ real flops per call (compute-bound; the design
+    notes are in the source, the measured times in PERF.md).
+
+    Heff and rho: contiguous (n, n), both complex128 or both complex64,
+    on one device. On the CPU this is :func:`liouvillian_commutator_ref`;
+    on CUDA it launches the kernel (counted in
+    ``liouvillian_commutator.launches``) or raises.
+    """
+    _check_commutator_args(Heff, rho)
+    if rho.device.type == "cpu":
+        return liouvillian_commutator_ref(Heff, rho)
+    from . import _cuda_lib
+    lib = _cuda_lib.load("liouvillian").lib
+    fn = (lib.liouvillian_commutator_c128 if rho.dtype == torch.complex128
+          else lib.liouvillian_commutator_c64)
+    out = torch.empty_like(rho)
+    n = rho.shape[0]
+    if n == 0:
+        return out
+    with torch.cuda.device(rho.device):
+        err = fn(Heff.data_ptr(), rho.data_ptr(), out.data_ptr(), n,
+                 torch.cuda.current_stream(rho.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"liouvillian_commutator: kernel launch failed "
+                           f"with CUDA error {err}")
+    liouvillian_commutator.launches += 1
+    return out
+
+
+liouvillian_commutator.launches = 0
+
+
+def liouvillian_matvec(H, c_ops=None, use_kernel=None):
+    """Matrix-free Liouvillian closure ``L(rho) -> drho/dt`` with the
+    commutator term on :func:`liouvillian_commutator` and the jump terms
+    as two batched products over the stacked c_ops (counterpart of
+    ``pallas_kernels.py:421``, where they are one einsum outside the
+    Pallas call):
+
+        L(ρ) = −i(H_eff ρ − ρ H_eff†) + Σ_k c_k ρ c_k†,
+        H_eff = H − (i/2) Σ_k c_k† c_k.
+
+    H and the c_ops are tensors of rho's dtype and device. ``use_kernel``
+    None or True: the commutator goes through the kernel's wrapper (its
+    plain version for CPU tensors); False: the plain version on any
+    device, as the JAX package's ``use_pallas=False``.
+    """
+    commutator = (liouvillian_commutator if use_kernel in (None, True)
+                  else liouvillian_commutator_ref)
+    c_ops = list(c_ops or [])
+    S = sum((c.mH @ c for c in c_ops), torch.zeros_like(H))
+    Heff = (H - 0.5j * S).contiguous()
+    cstack = torch.stack(c_ops) if c_ops else None
+    cdstack = cstack.mH.resolve_conj() if c_ops else None
+
+    def L(rho):
+        out = commutator(Heff, rho)
+        if cstack is not None:
+            out = out + (cstack @ rho @ cdstack).sum(dim=0)
+        return out
+
+    return L

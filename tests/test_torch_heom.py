@@ -279,6 +279,17 @@ def test_port_never_imports_jax():
         "    r = s.run(psi / np.sqrt(s.norm(psi).item()), dt=0.02, nt=10,\n"
         "              nout=5)\n"
         "    assert abs(r.population[-1].sum().item() - 1) < 1e-12\n"
+        "for k in ('cuda', 'matmul'):\n"
+        "    r = pt.LindbladSolver(H, [0.3 * pt.sigmam()], kernel=k,\n"
+        "                          device='cpu').run(\n"
+        "        pt.ket2dm(pt.basis(2, 1)), dt=0.01, Nt=20, nout=5,\n"
+        "        e_ops=[np.eye(2)])\n"
+        "    assert abs(r.observables[-1, 0].item() - 1) < 1e-12\n"
+        "m = pt.FMO()\n"
+        "r = m.redfield(device='cpu').run(m.initial_state(0), dt=10.0,\n"
+        "                                 Nt=20, nout=5,\n"
+        "                                 e_ops=m.site_projectors())\n"
+        "assert abs(r.observables[-1].real.sum().item() - 1) < 1e-12\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "               'pyqed_tpu.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n")
