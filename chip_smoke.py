@@ -10,24 +10,29 @@ nonzero:
 
 1. environment: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: compiles csrc/heom_coupling.cu, csrc/spo.cu and
-   csrc/liouvillian.cu with nvcc, one process each, started together, and
-   prints their -Xptxas -v reports;
+   csrc/liouvillian.cu with nvcc, one process each, started together,
+   prints their -Xptxas -v reports, and counts the DMMA (FP64 tensor-core)
+   instructions in the commutator library's SASS (cuobjdump), which must
+   not be zero;
 3. kernel parity, each CUDA kernel against its plain PyTorch version,
    complex128 (rel <= 1e-12) and complex64 (rel <= 1e-5):
-   - the HEOM coupling at the FMO flagship shape (680 ADOs, V = 49) and
-     at the n = 8 exciton-chain shape (680 ADOs, V = 64);
+   - the HEOM coupling at the FMO flagship shape (680 ADOs, V = 49, nj =
+     28), at the n = 8 exciton-chain shape (680 ADOs, V = 64) and on the
+     FMO nexp=2 hierarchy (2,024 ADOs, nj = 42);
    - the SPO phase multiply and potential apply at the 256^3 x 2-state
      chip shape (states-first, the layout of the FFT on the main path)
      and at a ragged 37 x 41 x 29 x 3-state shape in both layouts;
-   - the Liouvillian commutator at n = 16, 37, 1000 and 1024 on random
-     non-Hermitian H_eff and rho;
+   - the Liouvillian commutator at n = 16, 37, 1000 and 1024 (and 2048
+     at complex128) on random non-Hermitian H_eff and rho;
 4. main paths, each driven with every launch count set to 0 just before
    and read just after:
    - HEOM: FMO().heom(..., device='cuda').run(...) for 4000 steps of
      10 au (968 fs) at complex128 through the kernel (launch count
      4 x nt, trace error and agreement with the plain einsum run
      <= 1e-10, first window against a CPU run), then the nexp=2
-     hierarchy (2,024 ADOs);
+     hierarchy (2,024 ADOs), then an underdamped two-level bath (complex
+     rates) through the kernel (launch count 4 x nt) against
+     kernel='matmul' (<= 1e-10);
    - SPO: SPO3 on a 256^3 grid with 2 states (the two-state coupled
      harmonic model of bench.py's _spo3_model), run(dt=0.004, nt=200,
      nout=20) at complex128 through the kernels (launch counts 2 x nt
@@ -47,19 +52,34 @@ nonzero:
      drift <= 1e-10);
    - Redfield: FMO().redfield() on the card against the same run on the
      CPU (<= 1e-10);
-5. timing, for the record (CUDA events after warm-up, in turns): kernel,
-   plain version and one-call PyTorch yardstick per call; run() steps/s
-   for every right-hand side (HEOM), for cuda and xla (SPO 256^3), and
-   for cuda, matmul and propagator (Lindblad n = 16) and cuda and matmul
-   (n = 1024); SPO build() seconds, torch.profiler breakdowns of the
-   256^3 Strang step and of the n = 1024 Lindblad RK4 step, and peak
-   device memory.
+5. timing, for the record (CUDA events over eager calls after warm-up,
+   in turns: plain, kernel, library, kernel, plain): kernel, plain
+   version and one-call PyTorch yardstick per call (the HEOM coupling
+   also as host enqueue per call and as device time of 50 calls replayed
+   from a CUDA graph, which leaves the host out); run() steps/s for every
+   right-hand side
+   (HEOM), for cuda and xla (SPO 256^3), and for cuda, matmul and
+   propagator (Lindblad n = 16) and cuda and matmul (n = 1024); SPO
+   build() seconds, torch.profiler breakdowns of the flagship HEOM RK4
+   step, of the 256^3 Strang step and of the n = 1024 Lindblad RK4 step,
+   and peak device memory.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
 printing any result.
+
+    python3 chip_smoke.py --ab PARENT [PAIRS]
+
+compares the HEOM main path of the package in another checkout PARENT
+(for example the parent commit, unpacked with ``git archive <commit>
+pyqed_tpu_torch | tar -x -C build/parent``) with this one's in one
+process: run() steps/s in PAIRS alternating pairs (12 by default) and
+the right-hand side's time per call (:func:`ab_main`).
 """
+import glob
 import json
+import os
+import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -91,6 +111,7 @@ LB_BIG_NVIB = 512  # chip scale: n = 1024
 LB_BIG_NT = 200
 LB_BIG_NOUT = 20
 COMM_SIZES = (16, 37, 1000, 1024)
+COMM_C128_ONLY = (2048,)
 COMM_TIME_SIZES = (1024, 2048)
 
 # H100 SXM data sheet: HBM3 bytes/s; flop/s of FP64 (tensor cores) and of
@@ -160,6 +181,32 @@ def phase_build():
         for line in b.log.splitlines():
             if line.strip():
                 log(f"[build] {line.strip()}")
+    lib = built[names.index("liouvillian")].path
+    ops = re.findall(r"\bDMMA[.\w]*", sass_of(lib))
+    log(f"[build] {lib.name}: {len(ops)} DMMA instructions in its SASS "
+        f"({', '.join(sorted(set(ops)))}): the complex128 commutator runs "
+        "on the FP64 tensor cores")
+    if not ops:
+        raise AssertionError(f"no DMMA instruction in {lib}")
+
+
+def sass_of(path):
+    """cuobjdump -sass of a library, with cuobjdump from the CUDA toolkit
+    or from the triton package."""
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        cands += glob.glob(os.path.join(os.path.dirname(triton.__file__),
+                                        "backends", "nvidia", "bin",
+                                        "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((c for c in cands if os.path.isfile(c)), None)
+    if tool is None:
+        raise RuntimeError("cuobjdump not found in the CUDA toolkit or triton")
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
 
 
 # ------------------------------------------------------------------ 3
@@ -350,7 +397,41 @@ def phase_main():
         raise AssertionError(f"card and CPU runs differ by {d:.3e}")
     sol2 = m.heom(**dict(FLAGSHIP, nexp=2), device=DEVICE)
     checked_run(m, sol2, 400, "FMO nexp=2")
+    phase_underdamped()
     return launches
+
+
+def phase_underdamped(nt=2000, dt=0.05, nout=100):
+    """A two-level system under an underdamped bath (complex rates, as
+    tests/test_torch_heom.py's test_complex_rates_match_jax_einsum) through
+    the coupling kernel, against kernel='matmul' on the same card."""
+    from pyqed_tpu_torch import HEOMSolver
+    H = np.diag([0.0, 1.0])
+    Q = np.array([[0.0, 1.0], [1.0, 0.0]])
+    bath = [(Q, [0.05 + 0.02j, 0.05 - 0.02j], [0.3 + 0.5j, 0.3 - 0.5j])]
+    sol = HEOMSolver(H, bath=bath, lmax=4, device=DEVICE)
+    rho0 = np.diag([0.0, 1.0])
+    kw = dict(dt=dt, nt=nt, nout=nout, e_ops=[np.diag([0.0, 1.0])])
+    torch.cuda.synchronize()
+    reset_counts()
+    res = sol.run(rho0, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    res_m = sol.run(rho0, kernel="matmul", **kw)
+    diff = max((res.observables - res_m.observables).abs().max().item(),
+               (res.ado - res_m.ado).abs().max().item())
+    finite = bool(torch.isfinite(torch.view_as_real(res.ado)).all())
+    p1 = res.observables[-1, 0].real.item()
+    log(f"[main] underdamped two-level bath (complex rates) lmax=4 "
+        f"nado={res.ado.shape[0]} nt={nt}: kernel launches {counts} "
+        f"(expected heom_coupling {4 * nt}), |cuda - matmul| {diff:.2e} "
+        f"(tol 1e-10), final excited population {p1:.6f}")
+    if counts != {"heom_coupling": 4 * nt, "spo_phase": 0, "spo_potential": 0,
+                  "liouvillian_commutator": 0}:
+        raise AssertionError(f"underdamped bath: launches {counts}")
+    if not (finite and diff <= 1e-10):
+        raise AssertionError(f"underdamped bath: cuda and matmul differ by "
+                             f"{diff:.3e}")
 
 
 def spo3_model(n, span=7.0):
@@ -541,23 +622,130 @@ def steps_per_s(m, sol, kernel, nt=2000):
     return (nt - NOUT) / (walls[1] - walls[0])
 
 
-def phase_timing(card, shapes):
-    from pyqed_tpu_torch import FMO
+def graph_ms(fn, args, calls=50, reps=20):
+    """Device time per call of ``fn(*args)``: ``calls`` calls captured in
+    one CUDA graph, replayed ``reps`` times between CUDA events, so the
+    host's enqueue time does not count."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def profile_steps(advance, steps):
+    """Device time of ``steps`` calls of ``advance()`` by kernel name
+    (torch.profiler; only the device's own events, so time under an aten
+    op is not counted twice): (total us per step, rows of (us per step,
+    kernels per step, name), longest first)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            advance()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / steps, evt.count / steps, evt.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows
+
+
+def heom_profile(sol, steps=20):
+    """Device time per flagship RK4 step by kernel (:func:`profile_steps`),
+    with the right-hand side of HEOMSolver.run and its RK4 step."""
+    from pyqed_tpu_torch.core.dynamics import rk4_step
+    rhs, nado = sol.rhs_fn(torch.complex128)
+    step = rk4_step(rhs)
+    y = [torch.zeros((nado, sol.n, sol.n), dtype=torch.complex128,
+                     device=DEVICE)]
+    y[0][0, 0, 0] = 1.0
+
+    def advance():
+        y[0] = step(y[0], 0.0, DT)
+
+    for _ in range(3):
+        advance()
+    return profile_steps(advance, steps)
+
+
+def host_ms(fn, args, iters=300):
+    """Host time per call of ``fn(*args)`` (its enqueue; the device may
+    still be busy when it returns)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    t = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return t * 1e3
+
+
+def us(xs, fmt=".1f"):
+    return " / ".join(f"{x * 1e3:{fmt}}" for x in xs)
+
+
+def coupling_timing(card, name, sol, dtype):
+    """One shape and dtype of :func:`phase_timing`'s coupling times:
+    (kernel ms, plain ms, bound), eager."""
     from pyqed_tpu_torch.ops import kernels as kn
-    times = {}
-    for name, sol in shapes.items():
-        for dtype in (torch.complex128, torch.complex64):
-            args = coupling_operands(sol, dtype)
-            t_plain = event_ms(kn.heom_coupling_ref, args)
-            t_kern = event_ms(kn.heom_coupling, args)
-            t_plain2 = event_ms(kn.heom_coupling_ref, args)
-            times[(name, dtype)] = (t_kern, min(t_plain, t_plain2),
-                                    coupling_bound(*args))
-            log(f"[time] heom_coupling {name} {str(dtype)[6:]}: kernel "
-                f"{t_kern * 1e3:.1f} us, plain {t_plain * 1e3:.1f} / "
-                f"{t_plain2 * 1e3:.1f} us per call, bound "
-                f"{times[(name, dtype)][2][0] * 1e3:.2f} us "
-                f"({times[(name, dtype)][2][1]}) ({card})")
+    args = coupling_operands(sol, dtype)
+    plan = kn.heom_coupling_plan(args[1], args[2])
+
+    def kern(*a):
+        return kn.heom_coupling(*a, plan=plan)
+
+    fns = {"plain": kn.heom_coupling_ref, "kernel": kern}
+    t = {k: dict(eager=[], host=[], graph=[]) for k in fns}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which]["eager"].append(event_ms(fns[which], args))
+        t[which]["host"].append(host_ms(fns[which], args))
+        t[which]["graph"].append(graph_ms(fns[which], args))
+    b = coupling_bound(*args)
+    log(f"[time] heom_coupling {name} {str(dtype)[6:]}: eager per call "
+        f"(CUDA events) kernel {us(t['kernel']['eager'])} us, plain "
+        f"{us(t['plain']['eager'])} us; host enqueue per call kernel "
+        f"{us(t['kernel']['host'])} us, plain {us(t['plain']['host'])} us; "
+        f"device per call (CUDA graph replay) kernel "
+        f"{us(t['kernel']['graph'], '.2f')} us, plain "
+        f"{us(t['plain']['graph'], '.2f')} us; bound {b[0] * 1e3:.2f} us "
+        f"({b[1]}); {plan.tiles.shape[0]} tiles ({card})")
+    return min(t["kernel"]["eager"]), min(t["plain"]["eager"]), b
+
+
+def phase_timing(card, shapes):
+    """The HEOM coupling per call, kernel (with the plan the main path
+    launches from) and plain version in turns: CUDA events over eager
+    calls (the kernels line's ms and plain_ms, as since the port began),
+    host enqueue per call, and device time of calls replayed from a CUDA
+    graph, a separate reading without the host; then run() steps/s and
+    the flagship step's profile."""
+    from pyqed_tpu_torch import FMO
+    times = {(name, dtype): coupling_timing(card, name, sol, dtype)
+             for name, sol in shapes.items()
+             for dtype in (torch.complex128, torch.complex64)}
     m = FMO()
     sol = m.heom(**FLAGSHIP, device=DEVICE)
     order = ["cuda", "einsum", "matmul", "levels", "rowcol"]
@@ -568,6 +756,15 @@ def phase_timing(card, shapes):
         log(f"[time] run() FMO flagship complex128 kernel={k}: "
             + ", ".join(f"{r:.0f}" for r in rates[k])
             + f" steps/s ({card})")
+    steps = 20
+    total, rows = heom_profile(sol, steps)
+    busy = total / 1e6 * max(rates["cuda"])
+    log(f"[time] HEOM FMO flagship RK4 step, kernel=cuda, torch.profiler "
+        f"over {steps} steps: device {total:.1f} us per step; busy share "
+        f"against the fastest unprofiled run() {busy:.2f} ({card})")
+    for us, count, key in rows[:12]:
+        log(f"[time]   {us:8.2f} us per step, {count:4.1f} kernels "
+            f"{key[:80]}")
     return times
 
 
@@ -626,31 +823,16 @@ def spo_steps_per_s(sol, psi0, kernel, nt=100):
 
 
 def spo_profile(sol, psi0, steps=5):
-    """Device time per Strang step by kernel name (torch.profiler; only
-    the device's own events, so time under an aten op is not counted
-    twice)."""
+    """Device time per Strang step by kernel name (:func:`profile_steps`)."""
     sol.build(SPO_DT)
-    psi = psi0
+    psi = [psi0]
+
+    def advance():
+        psi[0] = sol.step(psi[0])
+
     for _ in range(2):
-        psi = sol.step(psi)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            psi = sol.step(psi)
-        torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / steps, evt.count // steps, evt.key))
-    rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows
+        advance()
+    return profile_steps(advance, steps)
 
 
 def eigh_batch_probe(card):
@@ -699,7 +881,7 @@ def phase_spo_timing(card, sol, psi0):
         f"device {total / 1e3:.3f} ms per step; busy share against the "
         f"fastest unprofiled run() {busy:.2f} ({card})")
     for us, count, key in rows[:12]:
-        log(f"[time]   {us / 1e3:8.3f} ms  x{count:<3d} {key[:90]}")
+        log(f"[time]   {us / 1e3:8.3f} ms  x{count:<4g} {key[:90]}")
     log(f"[time] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB ({card})")
     return times
@@ -768,14 +950,17 @@ def commutator_library(Heff, rho):
 def phase_lindblad_parity():
     from pyqed_tpu_torch.ops import kernels as kn
     errs = {}
-    for n in COMM_SIZES:
-        for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64, 1e-5)):
-            Heff, rho = commutator_inputs(n, dtype)
-            out = kn.liouvillian_commutator(Heff, rho)
-            errs[(n, dtype)] = check_close(
-                f"liouvillian_commutator n={n} {str(dtype)[6:]}", out,
-                kn.liouvillian_commutator_ref(Heff, rho), tol)
-            del Heff, rho, out
+    cases = [(n, dtype, tol) for n in COMM_SIZES
+             for dtype, tol in ((torch.complex128, 1e-12),
+                                (torch.complex64, 1e-5))]
+    cases += [(n, torch.complex128, 1e-12) for n in COMM_C128_ONLY]
+    for n, dtype, tol in cases:
+        Heff, rho = commutator_inputs(n, dtype)
+        out = kn.liouvillian_commutator(Heff, rho)
+        errs[(n, dtype)] = check_close(
+            f"liouvillian_commutator n={n} {str(dtype)[6:]}", out,
+            kn.liouvillian_commutator_ref(Heff, rho), tol)
+        del Heff, rho, out
     return errs
 
 
@@ -942,9 +1127,8 @@ def lindblad_steps_per_s(sol, rho0, e_ops, nout, short, long, **kw):
 
 
 def lindblad_profile(nvib, steps=5):
-    """Device time per RK4 step at chip scale by kernel name, and the
-    number of kernels of each name in the profiled steps (torch.profiler,
-    device events only)."""
+    """Device time per RK4 step at chip scale by kernel name
+    (:func:`profile_steps`)."""
     from pyqed_tpu_torch.core.dynamics import rk4_step
     from pyqed_tpu_torch.ops.kernels import liouvillian_matvec
     H, c, rho0, _ = dimer_problem(nvib)
@@ -952,27 +1136,14 @@ def lindblad_profile(nvib, steps=5):
     Ht = torch.as_tensor(H, dtype=torch.complex128, device=dev)
     ct = torch.as_tensor(c, dtype=torch.complex128, device=dev)
     step = rk4_step(liouvillian_matvec(Ht, [ct]))
-    rho = torch.as_tensor(rho0, dtype=torch.complex128, device=dev)
+    rho = [torch.as_tensor(rho0, dtype=torch.complex128, device=dev)]
+
+    def advance():
+        rho[0] = step(rho[0], 0.0, LB_DT)
+
     for _ in range(2):
-        rho = step(rho, 0.0, LB_DT)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            rho = step(rho, 0.0, LB_DT)
-        torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / steps, evt.count, evt.key))
-    rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows
+        advance()
+    return profile_steps(advance, steps)
 
 
 def phase_lindblad_timing(card):
@@ -1037,7 +1208,7 @@ def phase_lindblad_timing(card):
         f"{steps} steps: device {total / 1e3:.3f} ms per step; busy share "
         f"against the fastest unprofiled run() {busy:.2f} ({card})")
     for us, count, key in rows[:10]:
-        log(f"[time]   {us / 1e3:8.3f} ms per step, {count:3d} kernels "
+        log(f"[time]   {us / 1e3:8.3f} ms per step, {count:4.1f} kernels "
             f"{key[:80]}")
     log(f"[time] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB ({card})")
@@ -1050,7 +1221,8 @@ def main():
     phase_build()
     from pyqed_tpu_torch import FMO
     shapes = {"fmo": FMO().heom(**FLAGSHIP, device=DEVICE),
-              "chain8": chain_solver()}
+              "chain8": chain_solver(),
+              "nexp2": FMO().heom(**dict(FLAGSHIP, nexp=2), device=DEVICE)}
     errs = phase_parity(shapes)
     spo_errs = phase_spo_parity()
     lb_errs = phase_lindblad_parity()
@@ -1117,5 +1289,97 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+# ---------------------------------------------------------------- A/B
+def load_package(path, name):
+    """The package at ``path`` imported under ``name``, beside this
+    checkout's pyqed_tpu_torch (the package's own imports are relative)."""
+    import importlib.util
+    import sys
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(path, "__init__.py"),
+        submodule_search_locations=[path])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ab_main(parent_root, pairs):
+    """The HEOM main path of another checkout's package (``parent_root``)
+    against this checkout's, in one process: the FMO flagship's run()
+    steps/s with kernel='cuda' in ``pairs`` alternating pairs, then its
+    right-hand side per call (CUDA events over eager calls, and host
+    enqueue) in turns; the verdict on run() compares this checkout's
+    median with the other's range. Then this checkout's coupling times
+    (:func:`coupling_timing`)."""
+    import importlib
+    import statistics
+    card = phase_environment()
+    import pyqed_tpu_torch
+    pkgs = {"parent": load_package(
+                os.path.join(os.path.abspath(parent_root), "pyqed_tpu_torch"),
+                "parent_pyqed_tpu_torch"),
+            "change": pyqed_tpu_torch}
+    with ThreadPoolExecutor(len(pkgs)) as pool:
+        list(pool.map(lambda p: importlib.import_module(
+            p.__name__ + ".ops._cuda_lib").load("heom_coupling"),
+            pkgs.values()))
+    runs = {k: (p.FMO(), p.FMO().heom(**FLAGSHIP, device=DEVICE))
+            for k, p in pkgs.items()}
+    for k in pkgs:
+        steps_per_s(*runs[k], "cuda")                 # warm-up
+    rates = {k: [] for k in pkgs}
+    for i in range(pairs):
+        for k in (("parent", "change") if i % 2 == 0
+                  else ("change", "parent")):
+            rates[k].append(steps_per_s(*runs[k], "cuda"))
+    rng = np.random.default_rng(SEED)
+    per_call = {k: dict(eager=[], host=[]) for k in pkgs}
+    for i in range(4):
+        for k in (("parent", "change") if i % 2 == 0
+                  else ("change", "parent")):
+            rhs, nado = runs[k][1].rhs_fn(torch.complex128)
+            n = runs[k][1].n
+            y = torch.as_tensor(rng.standard_normal((nado, n, n)) + 0j,
+                                device=DEVICE)
+            per_call[k]["eager"].append(event_ms(rhs, (y,)))
+            per_call[k]["host"].append(host_ms(rhs, (y,)))
+    for k in pkgs:
+        log(f"[ab] {k}: run() FMO flagship cuda steps/s "
+            + ", ".join(f"{r:.0f}" for r in rates[k])
+            + f"; median {statistics.median(rates[k]):.0f}, range "
+            f"{min(rates[k]):.0f}-{max(rates[k]):.0f}; right-hand side per "
+            f"call eager {us(per_call[k]['eager'])} us, host "
+            f"{us(per_call[k]['host'])} us ({card})")
+    from pyqed_tpu_torch.ops.kernels import _raw_stream
+    index = torch.cuda.current_device()
+    reads = {"torch.cuda.current_stream().cuda_stream":
+             lambda: torch.cuda.current_stream().cuda_stream,
+             "the raw handle (ops/kernels.py::_raw_stream)":
+             lambda: _raw_stream(index)}
+    log("[ab] host time per read of the current stream's handle: "
+        + "; ".join(f"{k} {us([host_ms(f, ()) for _ in range(3)], '.2f')} us"
+                    for k, f in reads.items()) + f" ({card})")
+    med, med_p = (statistics.median(rates[k]) for k in ("change", "parent"))
+    lo, hi = min(rates["parent"]), max(rates["parent"])
+    q = statistics.quantiles(rates["parent"], n=4)
+    wins = sum(c > p for c, p in zip(rates["change"], rates["parent"]))
+    if wins >= 0.9 * pairs and med - med_p > q[2] - q[0]:
+        verdict = "faster"
+    elif lo <= med <= hi:
+        verdict = "unchanged (within the parent's range)"
+    else:
+        verdict = "a regression" if med < lo else "unresolved"
+    log(f"[ab] run(): the change wins {wins} of {pairs} pairs; medians "
+        f"{med:.0f} (change) and {med_p:.0f} (parent) steps/s, the "
+        f"parent's range {lo:.0f}-{hi:.0f} and quartile spread "
+        f"{q[2] - q[0]:.0f}: {verdict}")
+    coupling_timing(card, "fmo", runs["change"][1], torch.complex128)
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+    if sys.argv[1:2] == ["--ab"]:
+        ab_main(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 12)
+    else:
+        main()

@@ -105,9 +105,10 @@ class HEOMSolver:
     kernel : right-hand side, one of ``einsum``, ``matmul``, ``levels``,
         ``rowcol`` (site-projector couplings only) or ``cuda`` (the
         hand-written coupling kernel; ``pallas`` is an alias). None picks
-        ``cuda`` on a CUDA device and ``einsum`` on the CPU. With complex
-        bath rates (underdamped or Prony baths) ``cuda`` runs as
-        ``matmul``, as the JAX package routes its level kernel.
+        ``cuda`` on a CUDA device and ``einsum`` on the CPU. Complex bath
+        rates (underdamped or Prony baths) run through the kernel too: the
+        damping is applied outside it, in full (the JAX package routes its
+        level kernel to ``matmul`` there, a TPU limitation).
     device : where the hierarchy lives; the card (``cuda``) when None,
         which raises without one. Pass ``"cpu"`` to run on the CPU.
     """
@@ -187,8 +188,6 @@ class HEOMSolver:
         H = self._H_np
         if kernel is None:
             kernel = "cuda" if dev.type == "cuda" else "einsum"
-        if kernel == "cuda" and np.iscomplexobj(nu):
-            kernel = "matmul"
         args = (H, Q, c, nu, keys, plus_idx, minus_idx)
         if kernel == "cuda":
             return kn.heom_rhs_coupling_factory(*args, dtype=dtype,

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``pyqed_tpu_torch/build/`` and loaded with :mod:`ctypes`; nothing
 is built when a module is imported. The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. ``nvcc`` is looked up in ``$CUDA_HOME/bin``,
+hash of the source, of the headers it includes from its directory and of
+the flags (:func:`source_digest`), so an edited source or header is
+rebuilt and an unchanged one is reused. ``nvcc`` is looked up in ``$CUDA_HOME/bin``,
 then on ``PATH``, then in ``/usr/local/cuda/bin``.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,8 +38,8 @@ _SPO = (_P, _P, _P, _L, _I, _L, _L, _P)
 # the cudaError_t of the launch)
 SIGNATURES = {
     "heom_coupling": {
-        "heom_coupling_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-        "heom_coupling_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "heom_coupling_c128": (_P,) * 5,
+        "heom_coupling_c64": (_P,) * 5,
     },
     "spo": {
         "spo_phase_c128": _SPO,
@@ -50,6 +52,12 @@ SIGNATURES = {
         "liouvillian_commutator_c64": (_P, _P, _P, _I, _P),
     },
 }
+
+
+class CouplingPlanArgs(ctypes.Structure):
+    """``PlanArgs`` of ``csrc/heom_coupling.cu``, field for field."""
+    _fields_ = [("w", _P), ("plan", _P), ("partial", _P), ("nado", _I),
+                ("ntiles", _I), ("nedges", _I), ("V", _I)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,12 +83,37 @@ def nvcc_path() -> str:
                        "are compiled at first use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(src: Path) -> list[Path]:
+    """The files that ``src`` includes with ``#include "..."`` from beside
+    it, and theirs in turn, each once, in the order first met."""
+    found, todo = [], [src]
+    while todo:
+        cur = todo.pop(0)
+        for name in _INCLUDE.findall(cur.read_bytes()):
+            path = cur.parent / name.decode()
+            if path.is_file() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
+def source_digest(src: Path, flags=NVCC_FLAGS) -> str:
+    """Hash of a source, the local headers it includes and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for path in local_includes(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if needed and load it (once per process)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(src)
     so = BUILD / f"lib{name}-{digest}.so"
     log_path = so.with_suffix(".log")
     seconds = 0.0

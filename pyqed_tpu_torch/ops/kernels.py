@@ -29,10 +29,10 @@ Contents:
   :func:`heom_rhs_rowcol_factory` (``rowcol``),
   :func:`heom_rhs_levels_xla_factory` (``levels``) and
   :func:`heom_rhs_coupling_factory` (``cuda``);
-- the coupling kernel: its wrapper :func:`heom_coupling` and two plain
-  versions, :func:`level_coupling` (the level-blocked form of the TPU
-  kernel) and :func:`heom_coupling_ref` (the index form the CUDA kernel
-  computes);
+- the coupling kernel: its wrapper :func:`heom_coupling`, the host plan
+  it launches from (:func:`heom_coupling_plan`) and two plain versions,
+  :func:`level_coupling` (the level-blocked form of the TPU kernel) and
+  :func:`heom_coupling_ref` (the index form the CUDA kernel computes);
 - the split-operator kernels: :func:`spo_phase_multiply` and
   :func:`spo_potential_apply`, with plain versions
   :func:`spo_phase_multiply_ref` and :func:`spo_potential_apply_ref`;
@@ -48,6 +48,9 @@ enumeration is level-graded, so without padding the level layout is the
 compact ``(nado, n·n)`` layout itself.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -347,77 +350,231 @@ def heom_coupling_ref(F, nbr, w, OpT):
     return torch.einsum("dja, jab -> db", g, OpT)
 
 
+# edges per tile of the kernel (kRows in csrc/heom_coupling.cu)
+COUPLING_TILE_EDGES = 16
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CouplingPlan:
+    """The hierarchy's edges in the order the coupling kernel walks them
+    (:func:`heom_coupling_plan`). An edge (d, j) with s = nbr[d, j] >= 0
+    adds w[d, j] F[s] @ OpT[j] to out[d].
+
+    A plan is bound to the ``nbr`` and ``w`` tensors it was built from
+    (``operands``) as they were then (their ``_version`` counters are
+    ``versions``): :func:`heom_coupling` takes it only with these two,
+    unchanged. The int32 arrays are views of one buffer, ``ints``, which
+    the kernel takes as one pointer. ``arrived`` is the kernel's
+    per-destination count of finished edges, zero between calls, and
+    ``launch_args`` keeps, for each V, what a launch takes that does not
+    change between calls, with the partials buffer: a plan serves one
+    stream at a time."""
+    operands: tuple         # (nbr, w) as given to heom_coupling_plan
+    versions: tuple         # their _version counters at the build
+    ints: torch.Tensor      # tiles | src | dst | slot | dst_ptr | arrived
+    tiles: torch.Tensor     # (ntiles, 3): j, first edge, edge count
+    src: torch.Tensor       # (edges,): source ADO, edges sorted by j
+    dst: torch.Tensor       # (edges,): the edge's destination ADO
+    slot: torch.Tensor      # (edges,): the edge's partial row
+    dst_ptr: torch.Tensor   # (nado + 1,): d's partial rows are dst_ptr[d]
+    #                         .. dst_ptr[d + 1] - 1, in ascending j
+    arrived: torch.Tensor   # (nado,), zero between calls
+    w: torch.Tensor         # (edges,) real: the edge's weight
+    edgeless: bool          # some destination has no edge (its row is 0)
+    launch_args: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def nedges(self):
+        return self.src.shape[0]
+
+
+def heom_coupling_plan(nbr, w):
+    """Edge-major plan of :func:`heom_coupling` for the hierarchy ``nbr``
+    ((nado, nj) int32, −1: no neighbour) and its weights ``w`` ((nado, nj)
+    float64 or float32), contiguous tensors on one device. Both are
+    checked here, once per right-hand side
+    (:func:`heom_rhs_coupling_factory`); the plan is built on the host
+    from copies of them, and its tensors lie on their device.
+
+    The edges are sorted by j (for a fixed j, d -> nbr[d, j] is one-to-one)
+    and cut into tiles of at most :data:`COUPLING_TILE_EDGES` edges of one
+    j: a block of the kernel stages OpT[j] once per tile and writes one
+    partial row per edge, at the edge's slot. The slots put each
+    destination's partials in consecutive rows, in ascending j: the block
+    that finishes a destination's last edge sums them in that order."""
+    _check_graph(nbr, w)
+    device, versions = nbr.device, (nbr._version, w._version)
+    operands = (nbr, w)
+    nbr, w = nbr.cpu().numpy(), w.cpu().numpy()
+    nado, nj = nbr.shape
+    if nbr.size and not (nbr.min() >= -1 and nbr.max() < nado):
+        raise ValueError(f"heom_coupling: nbr holds an index outside "
+                         f"[-1, {nado})")
+    jj, dd = np.nonzero(nbr.T >= 0)           # sorted by j, then by d
+    counts = np.bincount(jj, minlength=nj)
+    starts = np.cumsum(counts) - counts
+    R = COUPLING_TILE_EDGES
+    tiles = np.array([(j, starts[j] + o, min(R, counts[j] - o))
+                      for j in range(nj) for o in range(0, counts[j], R)],
+                     dtype=np.int32).reshape(-1, 3)
+    slot = np.empty(len(dd), np.int32)
+    slot[np.argsort(dd, kind="stable")] = np.arange(len(dd))  # j ascending
+    deg = np.bincount(dd, minlength=nado)
+    parts = [tiles.ravel(), nbr[dd, jj], dd, slot,
+             np.concatenate([[0], np.cumsum(deg)]), np.zeros(nado)]
+    ints = to_tensor(np.concatenate(parts).astype(np.int32), torch.int32,
+                     device)
+    views = dict(zip(("tiles", "src", "dst", "slot", "dst_ptr", "arrived"),
+                     torch.split(ints, [len(a) for a in parts])))
+    views["tiles"] = views["tiles"].view(-1, 3)
+    return CouplingPlan(operands=operands, versions=versions, ints=ints,
+                        **views,
+                        w=to_tensor(w[dd, jj], operands[1].dtype, device),
+                        edgeless=bool(np.any(deg == 0)))
+
+
 _KERNEL_DTYPES = {torch.complex128: torch.float64,
                   torch.complex64: torch.float32}
 
 
-def _check_coupling_args(F, nbr, w, OpT):
-    if F.dtype not in _KERNEL_DTYPES:
+def _check_graph(nbr, w):
+    """The checks of nbr and w, made once per plan."""
+    if nbr.dtype != torch.int32:
+        raise TypeError(f"heom_coupling: nbr must be int32, got {nbr.dtype}")
+    if w.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"heom_coupling: w must be float64 or float32, got "
+                        f"{w.dtype}")
+    if nbr.dim() != 2 or w.shape != nbr.shape:
+        raise ValueError(f"heom_coupling: expected nbr and w (nado, nj), got "
+                         f"{tuple(nbr.shape)} and {tuple(w.shape)}")
+    if w.device != nbr.device:
+        raise ValueError(f"heom_coupling: w is on {w.device}, nbr on "
+                         f"{nbr.device}")
+    if nbr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"heom_coupling: no kernel for device {nbr.device}")
+    if not (nbr.is_contiguous() and w.is_contiguous()):
+        raise ValueError("heom_coupling: nbr and w must be contiguous")
+
+
+def _check_operands(F, OpT, nbr, w):
+    """The checks of F and OpT against a checked nbr and w, made on every
+    call."""
+    rdt = _KERNEL_DTYPES.get(F.dtype)
+    if rdt is None:
         raise TypeError(f"heom_coupling: F must be complex128 or complex64, "
                         f"got {F.dtype}")
     if OpT.dtype != F.dtype:
         raise TypeError(f"heom_coupling: OpT is {OpT.dtype}, F is {F.dtype}")
-    if w.dtype != _KERNEL_DTYPES[F.dtype]:
-        raise TypeError(f"heom_coupling: w must be {_KERNEL_DTYPES[F.dtype]},"
-                        f" got {w.dtype}")
-    if nbr.dtype != torch.int32:
-        raise TypeError(f"heom_coupling: nbr must be int32, got {nbr.dtype}")
-    if F.dim() != 2 or OpT.dim() != 3 or nbr.dim() != 2:
-        raise ValueError("heom_coupling: expected F (nado, V), nbr "
-                         "(nado, nj), w (nado, nj), OpT (nj, V, V)")
-    nado, V = F.shape
-    nj = OpT.shape[0]
-    if (tuple(OpT.shape) != (nj, V, V) or tuple(nbr.shape) != (nado, nj)
-            or tuple(w.shape) != (nado, nj)):
+    if w.dtype != rdt:
+        raise TypeError(f"heom_coupling: w must be {rdt}, got {w.dtype}")
+    nado, nj = nbr.shape
+    if (F.dim() != 2 or F.shape[0] != nado
+            or OpT.shape != (nj, F.shape[1], F.shape[1])):
         raise ValueError(
             f"heom_coupling: shapes F {tuple(F.shape)}, nbr "
             f"{tuple(nbr.shape)}, w {tuple(w.shape)}, OpT "
-            f"{tuple(OpT.shape)} do not agree")
-    for name, x in (("F", F), ("nbr", nbr), ("w", w), ("OpT", OpT)):
-        if x.device != F.device:
-            raise ValueError(f"heom_coupling: {name} is on {x.device}, "
-                             f"F on {F.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"heom_coupling: {name} must be contiguous")
+            f"{tuple(OpT.shape)} do not agree: expected F (nado, V), nbr "
+            "and w (nado, nj), OpT (nj, V, V)")
+    # nbr is on the CPU or on a card (checked with the graph)
+    if not (F.is_cuda and OpT.is_cuda
+            and F.get_device() == OpT.get_device() == nbr.get_device()
+            if nbr.is_cuda else F.is_cpu and OpT.is_cpu):
+        raise ValueError(f"heom_coupling: F is on {F.device}, OpT on "
+                         f"{OpT.device}, nbr and w on {nbr.device}")
+    if not (F.is_contiguous() and OpT.is_contiguous()):
+        raise ValueError("heom_coupling: F and OpT must be contiguous")
 
 
-def heom_coupling(F, nbr, w, OpT):
+def _coupling_launch_args(plan, F):
+    """What a launch on a plan at F's V and dtype takes that does not
+    change between calls, made once: the C entry point, the partials
+    buffer (allocated here with ``torch.empty``) and the plan's pointers
+    and sizes as one ``PlanArgs`` struct in host memory, with its address.
+    The plan keeps all four."""
+    from . import _cuda_lib
+    lib = _cuda_lib.load("heom_coupling").lib
+    fn = (lib.heom_coupling_c128 if F.dtype == torch.complex128
+          else lib.heom_coupling_c64)
+    partial = F.new_empty((plan.nedges, F.shape[1]))
+    args = _cuda_lib.CouplingPlanArgs(
+        plan.w.data_ptr(), plan.ints.data_ptr(), partial.data_ptr(),
+        F.shape[0], plan.tiles.shape[0], plan.nedges, F.shape[1])
+    return fn, ctypes.addressof(args), args, partial
+
+
+def _raw_stream(index):
+    """The handle of the current CUDA stream of device ``index``. It is
+    read with the call PyTorch's own generated code uses, without making a
+    ``torch.cuda.Stream``: that object costs a wrapper about 10 us of host
+    time per launch on an H100 host (PERF.md), more than the launch."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
+
+
+def _launch_on(index, launch):
+    """``launch(stream)`` with CUDA device ``index`` current and its
+    current stream, switching devices only when it is not current
+    already."""
+    if index == torch.cuda.current_device():
+        return launch(_raw_stream(index))
+    with torch.cuda.device(index):
+        return launch(_raw_stream(index))
+
+
+def heom_coupling(F, nbr, w, OpT, plan=None):
     """HEOM coupling term, out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j].
 
     Replaces the level-blocked Pallas kernel of the JAX package
     (``pyqed_tpu/ops/pallas_kernels.py:681-769``). That kernel multiplies
     one-hot selection matrices because a TPU gathers poorly; each of their
     rows has one nonzero at most, so on a GPU the selection is a row
-    gather, and one launch of ``csrc/heom_coupling.cu`` covers every level
-    and both directions with one V×V complex row product per hierarchy
-    edge. At the FMO flagship (680 ADOs, M = 14, V = 49) that is 3,360
-    edges × 2,401 complex MACs ≈ 65 MFLOP over 1.1 MB of operators that
-    stay in L2; the kernel is bound by the latency of its L2 reads (the
-    design notes and measured times are in the source and in PERF.md).
+    gather, and ``csrc/heom_coupling.cu`` covers every level and both
+    directions with one V×V complex row product per hierarchy edge: at the
+    FMO flagship (680 ADOs, M = 14, V = 49) 3,360 edges × 2,401 complex
+    MACs ≈ 65 MFLOP over 1.1 MB of operators. It runs edge-major, from a
+    :class:`CouplingPlan`, in one launch: each block stages one OpT[j]
+    once for a tile of edges and writes one partial row per edge into a
+    scratch buffer; the block that finishes a destination's last edge sums
+    its partials in a fixed order (the design notes are in the source, the
+    measured times in PERF.md).
 
     F (nado, V) complex128/complex64, nbr (nado, nj) int32 (−1: no
     neighbour), w (nado, nj) real of F's precision, OpT (nj, V, V) of F's
-    dtype, all contiguous and on one device. On the CPU this is
-    :func:`heom_coupling_ref`; on CUDA it launches the kernel (counted in
-    ``heom_coupling.launches``) or raises.
+    dtype, all contiguous and on one device. ``plan``, from
+    :func:`heom_coupling_plan` on these very nbr and w tensors (the
+    wrapper raises for any other, or for these changed in place since),
+    is built once per right-hand side by :func:`heom_rhs_coupling_factory`:
+    nbr and w are checked when it is built, F and OpT on every call.
+    Without a plan nbr and w are checked here, and on CUDA a plan is built
+    from them on the host, which copies them back. The partials buffer
+    is allocated with ``torch.empty`` at a plan's first launch and kept
+    with it. On the CPU this is :func:`heom_coupling_ref`; on CUDA it
+    launches the kernel (counted in ``heom_coupling.launches``, one per
+    right-hand side, so an RK4 run counts 4 per step) or raises; a
+    hierarchy without edges (one ADO) launches nothing and returns zeros.
     """
-    _check_coupling_args(F, nbr, w, OpT)
-    if F.device.type == "cpu":
+    if plan is None:
+        _check_graph(nbr, w)
+    elif (plan.operands[0] is not nbr or plan.operands[1] is not w
+          or plan.versions != (nbr._version, w._version)):
+        raise ValueError("heom_coupling: the plan was built from other nbr "
+                         "and w tensors, or they were changed since")
+    _check_operands(F, OpT, nbr, w)
+    if not F.is_cuda:
         return heom_coupling_ref(F, nbr, w, OpT)
-    if F.device.type != "cuda":
-        raise ValueError(f"heom_coupling: no kernel for device {F.device}")
-    from . import _cuda_lib
-    lib = _cuda_lib.load("heom_coupling").lib
-    fn = (lib.heom_coupling_c128 if F.dtype == torch.complex128
-          else lib.heom_coupling_c64)
-    nado, V = F.shape
-    out = torch.empty_like(F)
-    if nado == 0:
+    if plan is None:
+        plan = heom_coupling_plan(nbr, w)
+    out = torch.zeros_like(F) if plan.edgeless else torch.empty_like(F)
+    if plan.nedges == 0:
         return out
-    with torch.cuda.device(F.device):
-        err = fn(F.data_ptr(), nbr.data_ptr(), w.data_ptr(), OpT.data_ptr(),
-                 out.data_ptr(), nado, OpT.shape[0], V,
-                 torch.cuda.current_stream(F.device).cuda_stream)
+    args = plan.launch_args.get(F.shape[1])
+    if args is None:
+        args = plan.launch_args[F.shape[1]] = _coupling_launch_args(plan, F)
+    fn, addr, _, _ = args
+    err = _launch_on(F.get_device(), lambda stream: fn(
+        F.data_ptr(), OpT.data_ptr(), out.data_ptr(), addr, stream))
     if err != 0:
         raise RuntimeError(f"heom_coupling: kernel launch failed with CUDA "
                            f"error {err}")
@@ -445,12 +602,14 @@ def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     OpT_t = to_tensor(OpT, dtype, device)
     nbr_t = to_tensor(nbr, torch.int32, device)
     w_t = to_tensor(w, real_dtype_of(dtype), device)
-    # complex column: addcmul_ below needs the operands' dtype
+    plan = heom_coupling_plan(nbr_t, w_t)
+    # complex column (complex bath rates enter in full): addcmul_ below
+    # needs the operands' dtype
     damp = to_tensor((keys @ np.asarray(nu))[:, None], dtype, device)
 
     def rhs(ados):
         flat = ados.reshape(nado, V)
-        out = heom_coupling(flat, nbr_t, w_t, OpT_t)
+        out = heom_coupling(flat, nbr_t, w_t, OpT_t, plan=plan)
         out.addmm_(flat, C_t)
         out.addcmul_(damp, flat, value=-1)
         return out.reshape(nado, n, n)
@@ -537,9 +696,9 @@ def _launch_spo(kind, wrapper, op, psi, layout):
                               device=psi.device)
     if npts == 0 or ns == 0:
         return out
-    with torch.cuda.device(psi.device):
-        err = fn(op.data_ptr(), psi.data_ptr(), out.data_ptr(), npts, ns,
-                 sp, ss, torch.cuda.current_stream(psi.device).cuda_stream)
+    err = _launch_on(psi.get_device(), lambda stream: fn(
+        op.data_ptr(), psi.data_ptr(), out.data_ptr(), npts, ns, sp, ss,
+        stream))
     if err != 0:
         raise RuntimeError(f"{kind}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -634,9 +793,11 @@ def liouvillian_commutator(Heff, rho):
     outputs over full row and column panels of real/imaginary planes
     padded to multiples of 128. ``csrc/liouvillian.cu`` keeps the operands
     interleaved complex and unpadded and reads H_eff† as the conjugate
-    transpose of H_eff: 64×64 output tiles, both products in one
-    accumulator, 16 n³ real flops per call (compute-bound; the design
-    notes are in the source, the measured times in PERF.md).
+    transpose of H_eff: 16 n³ real flops per call, bound by operations.
+    complex128 runs on the FP64 tensor cores (``mma.sync`` DMMA, 128×64
+    output tiles, both products into one real and one imaginary
+    accumulator), complex64 on FP32 FMA (the design notes are in the
+    source, the measured times in PERF.md).
 
     Heff and rho: contiguous (n, n), both complex128 or both complex64,
     on one device. On the CPU this is :func:`liouvillian_commutator_ref`;
@@ -654,9 +815,8 @@ def liouvillian_commutator(Heff, rho):
     n = rho.shape[0]
     if n == 0:
         return out
-    with torch.cuda.device(rho.device):
-        err = fn(Heff.data_ptr(), rho.data_ptr(), out.data_ptr(), n,
-                 torch.cuda.current_stream(rho.device).cuda_stream)
+    err = _launch_on(rho.get_device(), lambda stream: fn(
+        Heff.data_ptr(), rho.data_ptr(), out.data_ptr(), n, stream))
     if err != 0:
         raise RuntimeError(f"liouvillian_commutator: kernel launch failed "
                            f"with CUDA error {err}")

@@ -158,9 +158,20 @@ def test_rhs_matches_jax_pallas_and_einsum(kernel, coupling):
 
 
 @pytest.mark.parametrize("kernel", ["cuda", "levels", "matmul"])
-def test_complex_rates_match_jax_einsum(kernel):
-    """Underdamped/Prony baths carry complex rates; 'cuda' runs them as
-    'matmul', and the port's 'levels' keeps Im(nu) in the damping."""
+def test_complex_rates_match_jax_einsum(kernel, monkeypatch):
+    """Underdamped/Prony baths carry complex rates. 'cuda' keeps the
+    coupling kernel for them (its wrapper is called once per right-hand
+    side; the complex damping is applied outside it), and the port's
+    'levels' keeps Im(nu) in the damping."""
+    from pyqed_tpu_torch.ops import kernels as kn
+    calls = []
+    wrapper = kn.heom_coupling
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("plan"))
+        return wrapper(*args, **kwargs)
+
+    monkeypatch.setattr(kn, "heom_coupling", spy)
     H = np.diag([0.0, 1.0])
     Q = np.array([[0.0, 1.0], [1.0, 0.0]])
     bath = [(Q, [0.05 + 0.02j, 0.05 - 0.02j], [0.3 + 0.5j, 0.3 - 0.5j])]
@@ -171,6 +182,10 @@ def test_complex_rates_match_jax_einsum(kernel):
     ref = np.asarray(r_e(jnp.asarray(ados)))
     rhs, _ = ts.rhs_fn(torch.complex128, kernel=kernel)
     assert rel_err(rhs(torch.as_tensor(ados)).numpy(), ref) < RTOL
+    if kernel == "cuda":
+        assert len(calls) == 1 and isinstance(calls[0], kn.CouplingPlan)
+    else:
+        assert calls == []
 
 
 # ---------------------------------------------------------------- (v)

@@ -8,7 +8,9 @@ compared as numpy arrays at rel 1e-12, the gate of tests/test_pallas.py.
 The CUDA kernel itself runs only on a GPU (chip_smoke.py); here its
 wrapper takes the plain version because the tensors lie on the CPU.
 """
+import ctypes
 import re
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from pyqed_tpu.ops import pallas_kernels as pk
 from pyqed_tpu.open.heom import enumerate_hierarchy as j_enum
 from pyqed_tpu.open.heom import neighbor_maps as j_nbr
+from pyqed_tpu_torch.models.named import FMO
 from pyqed_tpu_torch.ops import kernels as kn
 from pyqed_tpu_torch.ops import _cuda_lib
 
@@ -296,6 +299,209 @@ def test_cuda_entry_points_match_ctypes_signatures():
     for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
         found[name] = len([p for p in params.split(",") if p.strip()])
     sigs = _cuda_lib.SIGNATURES["heom_coupling"]
+    assert set(found) == {"heom_coupling_c128", "heom_coupling_c64"}
     assert set(found) == set(sigs)
     for name, nparams in found.items():
         assert len(sigs[name]) == nparams
+
+
+def test_plan_args_struct_matches_ctypes():
+    """The PlanArgs struct that the C entry points take has the fields of
+    _cuda_lib.CouplingPlanArgs, in order, with matching C types."""
+    src = (Path(_cuda_lib.CSRC) / "heom_coupling.cu").read_text()
+    body = re.search(r"struct PlanArgs \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*(?:const )?(void\*|int) (\w+);", body, re.M)
+    ctype = {"void*": ctypes.c_void_p, "int": ctypes.c_int}
+    assert [(name, ctype[t]) for t, name in fields] == \
+        _cuda_lib.CouplingPlanArgs._fields_
+
+
+def test_build_digest_sees_included_headers(tmp_path):
+    """Editing a header of csrc/ changes the digest (the library's name)
+    of every source that includes it, and of no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda_lib.CSRC, csrc)
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    before = {n: _cuda_lib.source_digest(csrc / f"{n}.cu") for n in names}
+    for n in names:
+        assert before[n] == _cuda_lib.source_digest(_cuda_lib.CSRC / f"{n}.cu")
+    header = csrc / "sm90_common.cuh"
+    users = {n for n in names
+             if header in _cuda_lib.local_includes(csrc / f"{n}.cu")}
+    assert users == {"heom_coupling", "liouvillian"}
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _cuda_lib.source_digest(csrc / f"{n}.cu") for n in names}
+    for n in names:
+        assert (after[n] != before[n]) == (n in users)
+    assert _cuda_lib.source_digest(csrc / "spo.cu", flags=("-O2",)) != \
+        after["spo"]
+
+
+# ------------------------------------------------- the edge-major plan
+def plan_case(case):
+    """A hierarchy (the dict of :func:`hierarchy`) for the plan tests."""
+    if case == "small":
+        return hierarchy()
+    if case == "nado1":
+        return hierarchy(M=2, lmax=0)
+    if case == "isolated":
+        # some ADOs keep no neighbour: their rows of both maps are cut
+        h = hierarchy(M=3, lmax=3, seed=3)
+        nado = h["keys"].shape[0]
+        for d in (0, 4, nado - 1):
+            h["plus_idx"][d] = nado
+            h["minus_idx"][d] = nado
+        return h
+    assert case == "fmo"
+    sol = FMO().heom(temperature=300.0, lmax=3, nexp=1,
+                     decomposition="pade", device="cpu")
+    keys, plus_idx, minus_idx, Q, c, nu = sol._build(torch.complex128)
+    return dict(H=sol._H_np, Q=Q, c=c, nu=nu, keys=keys, plus_idx=plus_idx,
+                minus_idx=minus_idx, rng=np.random.default_rng(8))
+
+
+PLAN_CASES = ["fmo", "small", "isolated", "nado1"]
+
+
+def plan_walk(F, OpT, plan):
+    """Plain walk of a plan in the order of csrc/heom_coupling.cu: the
+    partial row of every edge, tile by tile, then each destination's sum
+    of its partials in the plan's order, starting from zero."""
+    nado, V = F.shape
+    partial = F.new_empty((plan.nedges, V))
+    for j, e0, cnt in plan.tiles.tolist():
+        e = slice(e0, e0 + cnt)
+        partial[plan.slot[e].long()] = (
+            (F[plan.src[e].long()] @ OpT[j]) * plan.w[e, None])
+    ptr = plan.dst_ptr.long()
+    deg = ptr[1:] - ptr[:-1]
+    out = F.new_zeros((nado, V))
+    for q in range(int(deg.max()) if nado and plan.nedges else 0):
+        has = deg > q
+        out[has] += partial[ptr[:-1][has] + q]
+    return out
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_walk_matches_coupling_ref(case):
+    """The kernel's arithmetic (a partial row per edge, then each
+    destination's sum in the plan's order), walked in plain torch from the
+    plan, equals the gather-and-contract plain version."""
+    h = plan_case(case)
+    _, OpT, nbr, w = kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"])
+    F = t(crand(h["rng"], h["keys"].shape[0], OpT.shape[-1]))
+    plan = kn.heom_coupling_plan(t(nbr), t(w))
+    out = plan_walk(F, t(OpT), plan)
+    ref = kn.heom_coupling_ref(F, t(nbr), t(w), t(OpT))
+    if case == "nado1":
+        assert plan.nedges == 0 and not out.abs().any() and not ref.abs().any()
+    else:
+        assert rel_err(out.numpy(), ref.numpy()) < RTOL
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_walk_plus_local_matches_jax(case):
+    """flat @ C − damp·flat + the plan walk == the JAX stacked RHS."""
+    h = plan_case(case)
+    n = h["H"].shape[0]
+    ados = crand(h["rng"], h["keys"].shape[0], n, n)
+    ref, (_, _, damp, flat, _) = jax_dot_reference(h, ados)
+    C, OpT, nbr, w = kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"])
+    F = t(flat)
+    out = F @ t(C) - t(damp)[:, None] * F + plan_walk(
+        F, t(OpT), kn.heom_coupling_plan(t(nbr), t(w)))
+    assert rel_err(out.numpy(), ref) < RTOL
+
+
+def test_plan_layout():
+    """Tiles hold at most COUPLING_TILE_EDGES edges of one j and cover the
+    j-sorted edges in order; each destination's partial rows are
+    consecutive and hold its own edges in ascending j; weights and sources
+    are those of nbr and w."""
+    h = plan_case("isolated")
+    _, _, nbr, w = kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"])
+    plan = kn.heom_coupling_plan(t(nbr), t(w).float())
+    assert plan.w.dtype == torch.float32
+    tiles = plan.tiles.numpy()
+    assert np.all((tiles[:, 2] >= 1)
+                  & (tiles[:, 2] <= kn.COUPLING_TILE_EDGES))
+    np.testing.assert_array_equal(tiles[1:, 1], np.cumsum(tiles[:-1, 2]))
+    assert tiles[:, 2].sum() == plan.nedges == int((nbr >= 0).sum())
+    assert np.all(np.diff(tiles[:, 0]) >= 0)
+    edge_j = np.repeat(tiles[:, 0], tiles[:, 2])
+    ptr, slot = plan.dst_ptr.numpy(), plan.slot.numpy()
+    np.testing.assert_array_equal(np.sort(slot), np.arange(plan.nedges))
+    for d in range(nbr.shape[0]):
+        e = np.argsort(slot)[ptr[d]:ptr[d + 1]]   # d's rows, in order
+        js = np.flatnonzero(nbr[d] >= 0)
+        np.testing.assert_array_equal(edge_j[e], js)
+        np.testing.assert_array_equal(plan.src.numpy()[e], nbr[d, js])
+        np.testing.assert_array_equal(plan.w.numpy()[e], w[d, js])
+        np.testing.assert_array_equal(plan.dst.numpy()[e], d)
+    assert ptr[1] == ptr[0] and ptr[5] == ptr[4]    # cut rows 0 and 4
+    assert plan.edgeless and not plan.arrived.any()
+    assert plan.arrived.shape == (nbr.shape[0],)
+    full = plan_case("small")
+    _, _, nbr, w = kn.heom_coupling_operands(
+        full["H"], full["Q"], full["c"], full["keys"], full["plus_idx"],
+        full["minus_idx"])
+    assert not kn.heom_coupling_plan(t(nbr), t(w)).edgeless
+
+
+def test_wrapper_takes_the_plan_of_its_own_operands():
+    """With the plan of its nbr and w the wrapper gives the plain result;
+    a plan of another hierarchy of the same size (nado, nj and V), of a
+    copy of nbr, or of nbr changed in place since, is refused on any
+    device."""
+    h, other = plan_case("small"), plan_case("isolated")
+    _, OpT, nbr, w = (t(x) for x in kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"]))
+    _, OpT2, nbr2, w2 = (t(x) for x in kn.heom_coupling_operands(
+        other["H"], other["Q"], other["c"], other["keys"], other["plus_idx"],
+        other["minus_idx"]))
+    assert nbr.shape == nbr2.shape and OpT.shape == OpT2.shape
+    assert not torch.equal(nbr, nbr2)
+    F = t(crand(h["rng"], *nbr.shape[:1], OpT.shape[-1]))
+    plan = kn.heom_coupling_plan(nbr, w)
+    torch.testing.assert_close(kn.heom_coupling(F, nbr, w, OpT, plan=plan),
+                               kn.heom_coupling_ref(F, nbr, w, OpT),
+                               rtol=0, atol=0)
+    for bad in (kn.heom_coupling_plan(nbr2, w2),
+                kn.heom_coupling_plan(nbr.clone(), w),
+                kn.heom_coupling_plan(nbr, w.clone())):
+        with pytest.raises(ValueError, match="plan"):
+            kn.heom_coupling(F, nbr, w, OpT, plan=bad)
+    nbr[0, 0] = nbr[0, 0].item()          # an in-place write, same values
+    with pytest.raises(ValueError, match="plan"):
+        kn.heom_coupling(F, nbr, w, OpT, plan=plan)
+
+
+@pytest.mark.parametrize("case", ["real F", "OpT dtype", "shape"])
+def test_wrapper_with_a_plan_rejects_bad_operands(case):
+    """F and OpT are checked on every call, a plan given or not."""
+    (F, nbr, w, OpT), exc = _bad_args(case)
+    plan = kn.heom_coupling_plan(nbr, w)
+    with pytest.raises(exc):
+        kn.heom_coupling(F, nbr, w, OpT, plan=plan)
+
+
+@pytest.mark.parametrize("case", ["w precision", "nbr int64", "noncontiguous",
+                                  "meta device", "out of range"])
+def test_plan_rejects_bad_graphs(case):
+    """nbr and w are checked when the plan is built: dtypes, shapes,
+    devices, layout, and every index of nbr in [-1, nado)."""
+    if case == "out of range":
+        _, nbr, w, _ = coupling_args()
+        nbr = nbr.clone()
+        nbr[1, 0] = nbr.shape[0]
+        exc = ValueError
+    elif case == "w precision":
+        _, nbr, w, _ = coupling_args()
+        w, exc = w.to(torch.float16), TypeError
+    else:
+        (_, nbr, w, _), exc = _bad_args(case)
+    with pytest.raises(exc):
+        kn.heom_coupling_plan(nbr, w)
