@@ -52,6 +52,21 @@ nonzero:
      drift <= 1e-10);
    - Redfield: FMO().redfield() on the card against the same run on the
      CPU (<= 1e-10);
+   - 2DES (BASELINE config #4; no hand-written kernel lies on this path,
+     so every launch count must stay 0): the photon-echo cube of
+     bench.py's excitonic dimer at 256 t2 x 512 x 512 complex128 (1.07
+     GB) through photon_echo_t2series and photon_echo_t2series_factored
+     (rel <= 1e-12 between them, finite; its first and last t2 maps at
+     full width and each builder at 8 x 64^2 against the CPU, rel <=
+     1e-12); tdes.twodes at t1 = t3 = 512 x 0.5, 64 t2 (R and S,
+     268 MB each; against the CPU at 64 x 8 x 64, rel <= 1e-12);
+   - DEOM at the FMO flagship hierarchy (680 ADOs, N = 33,320): run() for
+     4000 RK4 steps of 10 au against HEOMSolver.run with the coupling
+     kernel (rho_0(t) <= 1e-8, trace error <= 1e-10); the GMRES response
+     map (correlation_4op_3t_gmres, 16 x 16 grid of 50-600 cm^-1, T = 2
+     fs) with every solve's true relative residual <= 1e-8, and GMRES
+     against the host-eig map at FMO lmax = 1 and at the spin-boson of
+     tests/test_deom.py (rel <= 1e-6);
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -62,9 +77,13 @@ nonzero:
    propagator (Lindblad n = 16) and cuda and matmul (n = 1024); SPO
    build() seconds, torch.profiler breakdowns of the flagship HEOM RK4
    step, of the 256^3 Strang step and of the n = 1024 Lindblad RK4 step,
-   and peak device memory.
+   and peak device memory; for the 2DES slice, both cube builders end to
+   end (ms, maps/s), the factored assembly against its bound, the tdes
+   cube, DEOM run() steps/s beside HEOM's at the same hierarchy, and
+   torch.profiler breakdowns of the cube builders and the DEOM RK4 step.
 
-The line before the last is a JSON summary of the kernels; the last line
+The line before the last is a JSON summary of the kernels, with the
+2DES and DEOM gates and times under "slices"; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
 printing any result.
 
@@ -113,6 +132,20 @@ LB_BIG_NOUT = 20
 COMM_SIZES = (16, 37, 1000, 1024)
 COMM_C128_ONLY = (2048,)
 COMM_TIME_SIZES = (1024, 2048)
+
+PE_NW = 512        # bench.py bench_2des_tpu: 512 x 512 (omega1, omega3)
+PE_NT2 = 256       # x 256 t2 delays over [0, 30]
+PE_CHECK = (64, 8)            # card vs CPU: 64^2 x 8 t2
+DIMER_IDX = dict(g_idx=[0], e_idx=[1, 2], f_idx=[3])
+TD_NT = 512        # tdes: t1 = t3 = 512 points of dt = 0.5
+TD_DT = 0.5
+TD_NT2 = 64        # x 64 t2 over [0, 30]
+TD_CHECK = (64, 8)            # card vs CPU: 64 x 8 x 64
+RESOLVENT_NW = 16
+RESOLVENT_CM = (50.0, 600.0)  # omega_x grid, cm^-1; omega_y = -omega_x
+RESOLVENT_T_FS = 2.0
+RESOLVENT_NT_T = 40           # RK4 steps of e^{Delta T}
+GMRES_TOL = 1e-8
 
 # H100 SXM data sheet: HBM3 bytes/s; flop/s of FP64 (tensor cores) and of
 # FP32 (outside them), both 67e12
@@ -593,6 +626,269 @@ def phase_morse():
         raise AssertionError(f"Morse: kernel and dft runs differ by {d:.3e}")
 
 
+# ------------------------------------------------ 4, the 2DES slice
+def dimer_system():
+    """The excitonic dimer of bench.py:382 (_dimer_system): g, e1, e2, f
+    with transition dipoles and decay rates."""
+    E = np.array([0.0, 1.0, 1.15, 2.1])
+    dip = np.zeros((4, 4))
+    dip[0, 1] = dip[1, 0] = 1.0
+    dip[0, 2] = dip[2, 0] = 0.7
+    dip[1, 3] = dip[3, 1] = 0.8
+    dip[2, 3] = dip[3, 2] = 1.1
+    gamma = np.array([0.0, 0.02, 0.025, 0.04])
+    return E, dip, gamma
+
+
+def dimer_mol():
+    from pyqed_tpu_torch import Mol
+    E, dip, gamma = dimer_system()
+    m = Mol(np.diag(E), edip=dip)
+    m.gamma = gamma
+    return m
+
+
+def pe_cube(builder, nw, nt2, device):
+    """The photon-echo cube of the dimer, (nt2, nw, nw): pump = probe =
+    linspace(0.7, 1.45, nw), t2 = linspace(0, 30, nt2), as bench.py's
+    bench_2des_tpu builds it (complex128 here)."""
+    from pyqed_tpu_torch.signal import sos
+    w = np.linspace(0.7, 1.45, nw)
+    t2s = np.linspace(0.0, 30.0, nt2)
+    fn = {"series": sos.photon_echo_t2series,
+          "factored": sos.photon_echo_t2series_factored}[builder]
+    return fn(dimer_mol(), w, w, t2s, device=device, **DIMER_IDX)
+
+
+def td_grids(nt, nt2):
+    t = TD_DT * np.arange(nt)
+    return t, np.linspace(0.0, 30.0, nt2), t
+
+
+def finite(t):
+    return bool(torch.isfinite(torch.view_as_real(t)).all())
+
+
+def against_cpu(label, card, cpu, tol):
+    d = rel(card, cpu.to(card.device))
+    log(f"[2des] {label}: card vs CPU rel {d:.2e} (tol {tol:g})")
+    if not d <= tol:
+        raise AssertionError(f"{label}: card and CPU differ by rel {d:.3e}")
+    return d
+
+
+def phase_2des():
+    """The photon-echo cube at the bench shape through both builders, with
+    the launch counts read around it; the builders against each other on
+    the card and against the CPU at a small shape."""
+    out = {}
+    nw, nt2 = PE_NW, PE_NT2
+    for builder in ("series", "factored"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        S = pe_cube(builder, nw, nt2, DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_only(counts, "heom_coupling", 0, f"photon echo {builder}")
+        if tuple(S.shape) != (nt2, nw, nw) or S.dtype != torch.complex128 \
+                or not finite(S):
+            raise AssertionError(f"photon echo {builder}: {tuple(S.shape)} "
+                                 f"{S.dtype}, finite {finite(S)}")
+        out[builder] = S
+        log(f"[2des] photon-echo cube {builder}: {nt2} x {nw} x {nw} "
+            f"complex128 ({S.numel() * 16 / 1e9:.2f} GB) in {wall:.3f} s "
+            f"(first call), launches {counts}, max |S| "
+            f"{S.abs().max().item():.4e}")
+    d_sf = rel(out["factored"], out["series"])
+    log(f"[2des] factored vs series at {nt2} x {nw}^2: rel {d_sf:.2e} "
+        "(tol 1e-12)")
+    if not d_sf <= 1e-12:
+        raise AssertionError(f"photon echo: builders differ by rel {d_sf:.3e}")
+    # the first and last t2 maps at full width, on the CPU
+    from pyqed_tpu_torch.signal import sos
+    w = np.linspace(0.7, 1.45, nw)
+    ends = [0, nt2 - 1]
+    cpu = sos.photon_echo_t2series(dimer_mol(), w, w,
+                                   np.linspace(0.0, 30.0, nt2)[ends],
+                                   device="cpu", **DIMER_IDX)
+    errs = {"factored_vs_series": d_sf,
+            "series_ends_vs_cpu": against_cpu(
+                f"photon-echo series t2 maps {ends} at {nw}^2",
+                out["series"][ends], cpu, 1e-12)}
+    del out
+    cw, ct = PE_CHECK
+    for builder in ("series", "factored"):
+        errs[f"{builder}_vs_cpu"] = against_cpu(
+            f"photon-echo {builder} {ct} x {cw}^2",
+            pe_cube(builder, cw, ct, DEVICE), pe_cube(builder, cw, ct, "cpu"),
+            1e-12)
+    return errs
+
+
+def phase_tdes():
+    """Time-domain 2DES (R and its 2-D FFT S) of the dimer at 512 x 64 x
+    512 with the launch counts read around it; against the CPU at
+    64 x 8 x 64."""
+    from pyqed_tpu_torch.signal import tdes
+    t1, t2, t3 = td_grids(TD_NT, TD_NT2)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    R, S, w1, w3 = tdes.twodes(dimer_mol(), t1, t2, t3, device=DEVICE,
+                               **DIMER_IDX)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_only(counts, "heom_coupling", 0, "tdes")
+    shape = (TD_NT, TD_NT2, TD_NT)
+    for name, x in (("R", R), ("S", S)):
+        if tuple(x.shape) != shape or not finite(x):
+            raise AssertionError(f"tdes {name}: {tuple(x.shape)}, finite "
+                                 f"{finite(x)}")
+    log(f"[2des] tdes.twodes {TD_NT} x {TD_NT2} x {TD_NT} (dt {TD_DT}): R "
+        f"and S {R.numel() * 16 / 1e6:.0f} MB each, in {wall:.3f} s (first "
+        f"call), launches {counts}, max |R| {R.abs().max().item():.4e}")
+    del R, S
+    cn, cn2 = TD_CHECK
+    t1, t2, t3 = td_grids(cn, cn2)
+    card = tdes.twodes(dimer_mol(), t1, t2, t3, device=DEVICE, **DIMER_IDX)
+    cpu = tdes.twodes(dimer_mol(), t1, t2, t3, device="cpu", **DIMER_IDX)
+    return {"R_vs_cpu": against_cpu(f"tdes R {cn} x {cn2} x {cn}", card[0],
+                                    cpu[0], 1e-12),
+            "S_vs_cpu": against_cpu(f"tdes S {cn} x {cn2} x {cn}", card[1],
+                                    cpu[1], 1e-12)}
+
+
+def fmo_deom(lmax):
+    """The FMO flagship as a DEOM problem on the card: one Drude bath per
+    site through its projector, with FMO().heom(**FLAGSHIP)'s
+    temperature, cutoff, reorganisation and Pade decomposition."""
+    from pyqed_tpu_torch import FMO, DEOMBath, DEOMSolver
+    from pyqed_tpu_torch.units import au2k
+    m = FMO()
+    bath = DEOMBath.drude(temperature=FLAGSHIP["temperature"] / au2k,
+                          cutoff=m.cutoff, reorg=m.reorg,
+                          npsd=FLAGSHIP["nexp"], nmod=m.nsites,
+                          decomposition=FLAGSHIP["decomposition"])
+    Q = torch.stack(m.site_projectors())
+    return m, DEOMSolver(system=m.H, bath=bath, coupling=Q, lmax=lmax,
+                         device=DEVICE)
+
+
+def phase_deom():
+    """DEOM run() at the FMO flagship hierarchy (680 ADOs) for 4000 RK4
+    steps of 10 au, against the port's HEOMSolver with the coupling kernel
+    (the scaled and unscaled hierarchies give the same rho_0(t))."""
+    m, sol = fmo_deom(FLAGSHIP["lmax"])
+    rho0 = m.initial_state(0)
+    kw = dict(dt=DT, nt=NT, nout=NOUT)
+    res, counts, wall = counted_run(sol, rho0, "DEOM FMO",
+                                    p1=m.site_projectors()[0], **kw)
+    expect_only(counts, "heom_coupling", 0, "DEOM FMO")
+    nado = res.ado.shape[0]
+    heom = m.heom(**FLAGSHIP, kernel="cuda", device=DEVICE)
+    ref, counts_h, wall_h = counted_run(heom, rho0, "HEOM FMO",
+                                        e_ops=m.site_projectors(), **kw)
+    expect_only(counts_h, "heom_coupling", 4 * NT, "HEOM FMO reference")
+    d_rho = (res.states - ref.states).abs().max().item()
+    d_p1 = (res.observables[:, 0] - ref.observables[:, 0]).abs().max().item()
+    trace = torch.diagonal(res.states, dim1=-2, dim2=-1).sum(-1)
+    trace_err = (trace - 1.0).abs().max().item()
+    log(f"[deom] FMO lmax={FLAGSHIP['lmax']} nado={nado} N={nado * 49} "
+        f"nt={NT} dt={DT} in {wall:.2f} s, launches {counts}; HEOM "
+        f"kernel='cuda' in {wall_h:.2f} s (heom_coupling "
+        f"{counts_h['heom_coupling']}); |rho_0 deom - heom| {d_rho:.2e}, "
+        f"|p_1| {d_p1:.2e} (tol 1e-8), trace err {trace_err:.2e} (tol "
+        f"1e-10), final p_1 {res.observables[-1, 0].real.item():.6f}")
+    if nado != 680:
+        raise AssertionError(f"DEOM FMO: {nado} ADOs, expected 680")
+    if not max(d_rho, d_p1) <= 1e-8:
+        raise AssertionError(f"DEOM and HEOM differ by {max(d_rho, d_p1):.3e}")
+    if not trace_err <= 1e-10:
+        raise AssertionError(f"DEOM trace error {trace_err:.3e}")
+    return {"vs_heom": max(d_rho, d_p1), "trace_err": trace_err,
+            "run_s": wall, "nado": nado}
+
+
+def resolvent_problem(lmax):
+    """The FMO hierarchy, the site operator X = |1><2| + |2><1| for all
+    four actions ('llll'), rho0 = |1><1|, T = 2 fs, and the grid omega_x =
+    linspace(50, 600, 16) cm^-1, omega_y = -omega_x: the one-exciton
+    splittings, clear of omega = 0 (where -Delta is singular)."""
+    from pyqed_tpu_torch.units import au2fs, au2wavenumber
+    m, sol = fmo_deom(lmax)
+    X = np.zeros((m.nsites, m.nsites))
+    X[0, 1] = X[1, 0] = 1.0
+    wx = np.linspace(*RESOLVENT_CM, RESOLVENT_NW) / au2wavenumber
+    return sol, (X, X, X, X, m.initial_state(0), RESOLVENT_T_FS / au2fs,
+                 wx, -wx)
+
+
+def gmres_map(sol, args, nt_T, label):
+    """One GMRES response map with the launch counts read around it;
+    returns (S, seconds, stats), every solve's relative residual (the
+    true one, through the right-hand side, after the solve) <= tol."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    S = sol.correlation_4op_3t_gmres(*args, tol=GMRES_TOL, nt_T=nt_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_only(read_counts(), "heom_coupling", 0, label)
+    st = {k: v.cpu().numpy() for k, v in sol.gmres_stats.items()}
+    worst = max(st["residual_x"].max(), st["residual_y"].max())
+    if not (finite(S) and worst <= GMRES_TOL):
+        raise AssertionError(f"{label}: finite {finite(S)}, worst relative "
+                             f"residual {worst:.3e}")
+    return S, wall, st, worst
+
+
+def phase_resolvent():
+    """The GMRES response map at the 680-ADO FMO hierarchy on a 16 x 16
+    grid; the GMRES map against the host-eig map at FMO lmax = 1 and at
+    the spin-boson of tests/test_deom.py."""
+    from pyqed_tpu_torch import DEOMBath, DEOMSolver
+    sol, args = resolvent_problem(FLAGSHIP["lmax"])
+    S, wall, st, worst = gmres_map(sol, args, RESOLVENT_NT_T, "GMRES FMO")
+    nado = sol.rhs_fn()[1]
+    restarts = np.concatenate([st["restarts_y"], st["restarts_x"]])
+    log(f"[deom] GMRES map FMO lmax={FLAGSHIP['lmax']} (nado={nado}, N="
+        f"{nado * 49}) {RESOLVENT_NW} x {RESOLVENT_NW}, T "
+        f"{RESOLVENT_T_FS} fs ({RESOLVENT_NT_T} RK4 steps): {wall:.2f} s, "
+        f"restarts of 20 per solve y {st['restarts_y'].tolist()} x "
+        f"{st['restarts_x'].tolist()} (mean {restarts.mean():.1f}), worst "
+        f"relative residual {worst:.2e} (tol {GMRES_TOL:g}), max |S| "
+        f"{S.abs().max().item():.4e}")
+    out = {"map_s": wall, "mean_restarts": float(restarts.mean()),
+           "max_restarts": int(restarts.max()), "worst_residual": worst}
+    sol1, args1 = resolvent_problem(1)
+    t0 = time.perf_counter()
+    S_eig = sol1.correlation_4op_3t(*args1)
+    torch.cuda.synchronize()
+    t_eig = time.perf_counter() - t0
+    S_gm, t_gm, _, _ = gmres_map(sol1, args1, RESOLVENT_NT_T, "GMRES lmax=1")
+    d1 = rel(S_gm, S_eig)
+    bath = DEOMBath.drude(temperature=1.0, cutoff=0.5, reorg=0.05, npsd=1)
+    sb = DEOMSolver(system=np.array([[0.5, 0.1], [0.1, -0.5]]), bath=bath,
+                    coupling=np.array([[[1.0, 0], [0, -1.0]]]), lmax=3,
+                    device=DEVICE)
+    dip = np.array([[0.0, 1.0], [1.0, 0.0]])
+    sb_args = (dip, dip, dip, dip, np.diag([1.0, 0.0]), 2.0,
+               np.linspace(0.6, 1.5, 4), np.linspace(-1.5, -0.6, 3))
+    S_sb, _, _, _ = gmres_map(sb, sb_args, 400, "GMRES spin-boson")
+    d2 = rel(S_sb, sb.correlation_4op_3t(*sb_args))
+    log(f"[deom] GMRES vs host eig: FMO lmax=1 (N={sol1._nado * 49}, eig "
+        f"{t_eig:.2f} s, GMRES {t_gm:.2f} s) rel {d1:.2e}; spin-boson lmax=3 "
+        f"rel {d2:.2e} (tol 1e-6)")
+    if not max(d1, d2) <= 1e-6:
+        raise AssertionError(f"GMRES and eig maps differ by rel "
+                             f"{max(d1, d2):.3e}")
+    out.update({"gmres_vs_eig_fmo_lmax1": d1, "gmres_vs_eig_spin_boson": d2})
+    return out
+
+
 # ------------------------------------------------------------------ 5
 def event_ms(fn, args, iters=200, warmup=20):
     for _ in range(warmup):
@@ -608,15 +904,16 @@ def event_ms(fn, args, iters=200, warmup=20):
     return start.elapsed_time(end) / iters
 
 
-def steps_per_s(m, sol, kernel, nt=2000):
-    """run() steps/s from the difference of an nt-step and a one-window
-    run, so the setup of run() cancels."""
-    rho0, e_ops = m.initial_state(0), m.site_projectors()
+def steps_per_s(m, sol, nt=2000, **kw):
+    """run() steps/s of a solver of the FMO model ``m`` from the
+    difference of an nt-step and a one-window run, so the setup of run()
+    cancels (``kw`` go to run())."""
+    rho0 = m.initial_state(0)
     walls = []
     for steps in (NOUT, nt):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sol.run(rho0, dt=DT, nt=steps, nout=NOUT, e_ops=e_ops, kernel=kernel)
+        sol.run(rho0, dt=DT, nt=steps, nout=NOUT, **kw)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return (nt - NOUT) / (walls[1] - walls[0])
@@ -751,7 +1048,8 @@ def phase_timing(card, shapes):
     order = ["cuda", "einsum", "matmul", "levels", "rowcol"]
     rates = {k: [] for k in order}
     for k in order + order[::-1]:
-        rates[k].append(steps_per_s(m, sol, k))
+        rates[k].append(steps_per_s(m, sol, kernel=k,
+                                    e_ops=m.site_projectors()))
     for k in order:
         log(f"[time] run() FMO flagship complex128 kernel={k}: "
             + ", ".join(f"{r:.0f}" for r in rates[k])
@@ -1215,6 +1513,129 @@ def phase_lindblad_timing(card):
     return times
 
 
+def wall_s(fn, reps=3):
+    """Host seconds of fn() ending in a synchronise, for each of reps
+    calls after one warm call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def print_profile(label, total, rows, n=8):
+    log(f"[time] {label}: {total / 1e3:.3f} ms of device time per call")
+    for us_, count, key in rows[:n]:
+        log(f"[time]   {us_ / 1e3:8.3f} ms, {count:5.1f} kernels {key[:80]}")
+
+
+def phase_2des_timing(card):
+    """Times of the 2DES slice, recorded and not claimed: both cube
+    builders end to end (in turns) and the factored assembly alone
+    against its bound, the tdes cube, DEOM run() steps/s beside HEOM's at
+    the same hierarchy, and torch.profiler breakdowns of the cube builders
+    and of one DEOM RK4 step."""
+    from pyqed_tpu_torch.core.dynamics import rk4_step
+    from pyqed_tpu_torch.signal import sos, tdes
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = {"series": [], "factored": []}
+    for builder in ("series", "factored", "factored", "series"):
+        t[builder] += wall_s(lambda: pe_cube(builder, PE_NW, PE_NT2, DEVICE),
+                             reps=2)
+    for builder, ts in t.items():
+        out[f"cube_{builder}_ms"] = min(ts) * 1e3
+        out[f"cube_{builder}_maps_per_s"] = PE_NT2 / min(ts)
+        log(f"[time] photon-echo cube {builder} {PE_NT2} x {PE_NW}^2 "
+            f"complex128, end to end: " + " / ".join(f"{x * 1e3:.2f}"
+                                                      for x in ts)
+            + f" ms, {PE_NT2 / min(ts):.0f} maps/s ({card})")
+    E, dip, gamma = dimer_system()
+    w = np.linspace(0.7, 1.45, PE_NW)
+    C, A, B = sos._photon_echo_factors(E, dip, gamma, w, w,
+                                       np.linspace(0.0, 30.0, PE_NT2),
+                                       device=DEVICE, **DIMER_IDX)
+
+    def assemble(C, A, B):
+        return (A.T[None, :, :] * C[:, None, :]) @ B
+
+    ms = [event_ms(assemble, (C, A, B), iters=10, warmup=2) for _ in range(3)]
+    nbytes = PE_NT2 * PE_NW * PE_NW * 16 + sum(
+        x.numel() * 16 for x in (C, A, B))
+    flops = 8 * PE_NT2 * PE_NW * PE_NW * C.shape[1]
+    b_ms, b_by = bound_ms(nbytes, flops)
+    out["assemble_ms"] = min(ms)
+    out["assemble_bound_ms"] = b_ms
+    log(f"[time] factored assembly (T, W1, K) x (K, W3), K = {C.shape[1]}: "
+        + " / ".join(f"{x:.3f}" for x in ms) + f" ms (CUDA events), bound "
+        f"{b_ms:.3f} ms ({b_by}: {nbytes / 1e9:.3f} GB), "
+        f"{b_ms / min(ms):.2f} of it ({card})")
+    del C, A, B
+    for builder in ("factored", "series"):
+        total, rows = profile_steps(
+            lambda: pe_cube(builder, PE_NW, PE_NT2, DEVICE), 2)
+        out[f"cube_{builder}_device_ms"] = total / 1e3
+        print_profile(f"profile photon-echo cube {builder} (busy share "
+                      f"against its fastest call "
+                      f"{total / 1e3 / out[f'cube_{builder}_ms']:.2f})",
+                      total, rows)
+
+    t1, t2, t3 = td_grids(TD_NT, TD_NT2)
+
+    def twodes():
+        return tdes.twodes(dimer_mol(), t1, t2, t3, device=DEVICE,
+                           **DIMER_IDX)
+
+    ts = wall_s(twodes)
+    out["tdes_ms"] = min(ts) * 1e3
+    log(f"[time] tdes.twodes {TD_NT} x {TD_NT2} x {TD_NT} (R and S): "
+        + " / ".join(f"{x * 1e3:.2f}" for x in ts) + f" ms ({card})")
+    total, rows = profile_steps(twodes, 2)
+    out["tdes_device_ms"] = total / 1e3
+    print_profile(f"profile tdes.twodes (busy share against its fastest "
+                  f"call {total / 1e3 / out['tdes_ms']:.2f})", total, rows)
+    log(f"[time] 2DES peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above "
+        f"the {base / 2**30:.2f} GiB held before ({card})")
+
+    m, sol = fmo_deom(FLAGSHIP["lmax"])
+    heom = m.heom(**FLAGSHIP, device=DEVICE)
+    rho0 = m.initial_state(0)
+    rates = {"deom": [], "heom": []}
+    for which in ("deom", "heom", "heom", "deom"):
+        rates[which].append(
+            steps_per_s(m, sol, nt=1000) if which == "deom" else
+            steps_per_s(m, heom, nt=1000, kernel="cuda",
+                        e_ops=m.site_projectors()))
+    out["deom_steps_per_s"] = max(rates["deom"])
+    out["heom_steps_per_s"] = max(rates["heom"])
+    log(f"[time] run() FMO 680 ADOs complex128 steps/s: DEOM "
+        + ", ".join(f"{r:.0f}" for r in rates["deom"]) + "; HEOM "
+        "kernel='cuda' " + ", ".join(f"{r:.0f}" for r in rates["heom"])
+        + f" ({card})")
+    rhs, nado, n = sol.rhs_fn()
+    step = rk4_step(rhs)
+    y = [torch.zeros((nado, n, n), dtype=torch.complex128, device=DEVICE)]
+    y[0][0] = rho0.to(DEVICE)
+
+    def advance():
+        y[0] = step(y[0], 0.0, DT)
+
+    for _ in range(3):
+        advance()
+    total, rows = profile_steps(advance, 20)
+    out["deom_step_device_ms"] = total / 1e3
+    print_profile(f"profile DEOM RK4 step (busy share against the fastest "
+                  f"run() {total / 1e6 * max(rates['deom']):.2f})", total,
+                  rows)
+    return out
+
+
 def main():
     card = phase_environment()
     import pyqed_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -1232,10 +1653,14 @@ def main():
     phase_morse()
     lb_launches = phase_lindblad_main()
     phase_redfield()
+    slices = {"2des": {"photon_echo": phase_2des(), "tdes": phase_tdes()},
+              "deom": {"run": phase_deom(), "resolvent": phase_resolvent()}}
     times = phase_timing(card, shapes)
     spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0
     lb_times = phase_lindblad_timing(card)
+    slices["timing"] = phase_2des_timing(card)
+    slices["card"] = card
     t_kern, t_plain, (b_ms, b_by) = times[("fmo", torch.complex128)]
     kernels = [{
         "name": "heom_coupling",
@@ -1283,7 +1708,7 @@ def main():
         "bound_by": t["bound"][1],
         "library_ms": t["library_ms"],
     })
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "slices": slices}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1327,12 +1752,14 @@ def ab_main(parent_root, pairs):
     runs = {k: (p.FMO(), p.FMO().heom(**FLAGSHIP, device=DEVICE))
             for k, p in pkgs.items()}
     for k in pkgs:
-        steps_per_s(*runs[k], "cuda")                 # warm-up
+        steps_per_s(*runs[k], kernel="cuda",            # warm-up
+                    e_ops=runs[k][0].site_projectors())
     rates = {k: [] for k in pkgs}
     for i in range(pairs):
         for k in (("parent", "change") if i % 2 == 0
                   else ("change", "parent")):
-            rates[k].append(steps_per_s(*runs[k], "cuda"))
+            rates[k].append(steps_per_s(
+                *runs[k], kernel="cuda", e_ops=runs[k][0].site_projectors()))
     rng = np.random.default_rng(SEED)
     per_call = {k: dict(eager=[], host=[]) for k in pkgs}
     for i in range(4):

@@ -14,7 +14,14 @@ Ported so far:
   operator algebra it stands on (``ops/linalg``, ``ops/operators``,
   ``ops/superoperator``, ``ops/expm``, ``core/dynamics``), and the
   Liouvillian commutator −i(H_eff ρ − ρ H_eff†) as a hand-written CUDA
-  kernel (``csrc/liouvillian.cu``).
+  kernel (``csrc/liouvillian.cu``);
+- the 2DES slice: ``Mol`` (``models/mol``), the sum-over-states
+  photon-echo maps and the other signals of ``signal/sos`` (with the
+  t2-batched and the low-rank factored photon-echo cubes), the
+  time-domain 2DES of ``signal/tdes``, the rest of ``ops/math``, and the
+  DEOM solver (``DEOMSolver``, ``DEOMBath``) with its resolvent response
+  maps by host eig or by batched GMRES on the device. No TPU kernel lies
+  on this path: it runs on cuBLAS and cuFFT.
 
 Entry points run on the card (``device=None`` means ``cuda`` and raises
 without one) unless the caller passes ``device="cpu"``. The package
@@ -26,6 +33,7 @@ __version__ = "0.1.0"
 from . import units
 from .core.result import Result, load_result
 from .models.named import FMO
+from .models.mol import Mol, mls
 from .open.bath import DrudeBath
 from .open.heom import HEOMSolver, solver_from_reference
 from .grid import SPO, SPO2, SPO3, SPON, SPO2NH, ResultSPO
@@ -34,6 +42,8 @@ from .config import default_complex, default_real
 from .open.lindblad import (LindbladSolver, LiouvilleSolver, Lindblad_solver,
                             driven_dissipative_dynamics, absorption_eseries)
 from .open.redfield import RedfieldSolver, redfield_tensor
+from .open.deom import DEOMSolver, DEOMBath
+from . import signal
 from .ops.linalg import (
     dag, dagger, commutator, comm, anticommutator, anticomm, tensor,
     tensor_power, ptrace, transform, basis_transform, obs, obs_dm, expect,

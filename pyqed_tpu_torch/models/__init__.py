@@ -1,1 +1,2 @@
 from .named import FMO
+from .mol import Mol, SESolver, mls

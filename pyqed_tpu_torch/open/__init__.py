@@ -5,3 +5,4 @@ from .heom import (HEOMSolver, HEOMSolverDrude, enumerate_hierarchy,
 from .lindblad import (LindbladSolver, LiouvilleSolver, Lindblad_solver,
                        driven_dissipative_dynamics, absorption_eseries)
 from .redfield import RedfieldSolver, redfield_tensor
+from .deom import DEOMSolver, DEOMBath, Bath

@@ -305,6 +305,30 @@ def test_port_never_imports_jax():
         "                                 Nt=20, nout=5,\n"
         "                                 e_ops=m.site_projectors())\n"
         "assert abs(r.observables[-1].real.sum().item() - 1) < 1e-12\n"
+        "from pyqed_tpu_torch.signal import sos, tdes\n"
+        "dip = np.zeros((4, 4))\n"
+        "dip[0, 1] = dip[1, 0] = dip[1, 3] = dip[3, 1] = 1.0\n"
+        "dip[0, 2] = dip[2, 0] = dip[2, 3] = dip[3, 2] = 0.7\n"
+        "mol = pt.Mol(np.diag([0.0, 1.0, 1.15, 2.1]), edip=dip)\n"
+        "mol.set_decay_for_all(0.02)\n"
+        "w = np.linspace(0.7, 1.45, 16)\n"
+        "for f in (sos.photon_echo_t2series,\n"
+        "          sos.photon_echo_t2series_factored):\n"
+        "    S = f(mol, w, w, [0.0, 5.0], e_idx=[1, 2], f_idx=[3],\n"
+        "          device='cpu')\n"
+        "    assert tuple(S.shape) == (2, 16, 16)\n"
+        "t = 0.5 * np.arange(16)\n"
+        "R, S, w1, w3 = tdes.twodes(mol, t, [0.0, 5.0], t, device='cpu')\n"
+        "assert tuple(S.shape) == (16, 2, 16)\n"
+        "d = pt.DEOMSolver(system=H, bath=pt.DEOMBath.drude(\n"
+        "    temperature=1.0, cutoff=0.5, reorg=0.1, npsd=1), coupling=Q,\n"
+        "    lmax=2, device='cpu')\n"
+        "r = d.run(np.diag([1.0, 0.0]), dt=0.01, nt=20, nout=5)\n"
+        "assert abs(r.observables[-1, 0].item() - 1) < 1e-12\n"
+        "sx = np.array([[0.0, 1.0], [1.0, 0.0]])\n"
+        "S = d.correlation_4op_3t_gmres(sx, sx, sx, sx, np.diag([1.0, 0.0]),\n"
+        "                               1.0, [0.7], [-0.7], nt_T=20)\n"
+        "assert tuple(S.shape) == (1, 1)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "               'pyqed_tpu.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n")
