@@ -67,6 +67,23 @@ nonzero:
      fs) with every solve's true relative residual <= 1e-8, and GMRES
      against the host-eig map at FMO lmax = 1 and at the spin-boson of
      tests/test_deom.py (rel <= 1e-6);
+   - driven HEOM at the FMO flagship: run(edip=X, pulse=GaussianPulse)
+     for 4000 RK4 steps of 10 au through the kernel, X = |1><2| + |2><1|
+     (launch count 4 x nt, trace error and agreement with the driven
+     einsum run <= 1e-10, first window against the CPU <= 1e-10, a
+     zero-amplitude drive against the undriven run <= 1e-14, a run
+     checkpointed every 7 windows against the single run <= 1e-12);
+     HEOM absorption at FMO lmax = 1 (the dense Liouvillian, its host
+     SVD, 1999 RK4 steps through the kernel; card vs CPU <= 1e-10) and
+     correlation_2op_1t at the flagship (2000 steps, kernel vs einsum
+     <= 1e-10);
+   - config #5 (bench.py's _polariton_system, n = 20, complex128; no
+     hand-written kernel lies on this path, so every launch count must
+     stay 0): SESolver.run under H + E0 cos(w t) mu at 4 of 512 drive
+     frequencies for 2000 steps (card vs CPU <= 1e-10), the 512-column
+     scan as one batched RK4 for 20,000 steps (its columns against those
+     runs at step 2000 <= 1e-12), Floquet quasienergies at 8 frequencies
+     (card vs CPU <= 1e-10);
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -80,10 +97,15 @@ nonzero:
    and peak device memory; for the 2DES slice, both cube builders end to
    end (ms, maps/s), the factored assembly against its bound, the tdes
    cube, DEOM run() steps/s beside HEOM's at the same hierarchy, and
-   torch.profiler breakdowns of the cube builders and the DEOM RK4 step.
+   torch.profiler breakdowns of the cube builders and the DEOM RK4 step;
+   HEOM run() steps/s driven and undriven in turns, the host time of one
+   right-hand side driven and undriven by aten op, the device profile of
+   HEOMSolver.run's own step driven and undriven, and SESolver.run()
+   steps/s at config #5.
 
 The line before the last is a JSON summary of the kernels, with the
-2DES and DEOM gates and times under "slices"; the last line
+2DES, DEOM, driven-HEOM and polariton gates and times under "slices";
+the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
 printing any result.
 
@@ -97,6 +119,7 @@ the right-hand side's time per call (:func:`ab_main`).
 """
 import glob
 import json
+import math
 import os
 import re
 import subprocess
@@ -889,6 +912,401 @@ def phase_resolvent():
     return out
 
 
+# ------------------------------------------------ driven-dynamics slice
+DRIVE_CM = (200.0, 100.0)     # carrier and peak field (x |mu| = 1), cm^-1
+DRIVE_FS = (50.0, 150.0)      # width and centre, fs
+ABS_NW = 64                   # HEOM absorption on linspace(50, 600) cm^-1
+ABS_NTAU = 2000
+CORR_NT = 2000                # correlation_2op_1t at the flagship
+POL_E0 = 0.05                 # config #5 as bench.py builds it (n = 20)
+POL_DT = 0.002
+POL_NW = 512                  # drive frequencies over [0.8, 1.2]
+POL_SE_NT = 2000
+POL_SE_NOUT = 100
+POL_SCAN_NT = 20000
+POL_SE_COLS = (0, 170, 341, 511)
+POL_FLOQUET_COLS = tuple(range(0, POL_NW, POL_NW // 8))
+
+
+def fmo_drive(amplitude_cm=DRIVE_CM[1]):
+    """The drive of the driven flagship: the site operator X = |1><2| +
+    |2><1| of the resolvent phase under a GaussianPulse of 200 cm^-1
+    carrier, 50 fs width, centred at 150 fs, 100 cm^-1 peak field."""
+    from pyqed_tpu_torch import GaussianPulse
+    from pyqed_tpu_torch.units import au2fs, au2wavenumber
+    X = np.zeros((7, 7))
+    X[0, 1] = X[1, 0] = 1.0
+    return X, GaussianPulse(omegac=DRIVE_CM[0] / au2wavenumber,
+                            tau=DRIVE_FS[0] / au2fs, tc=DRIVE_FS[1] / au2fs,
+                            amplitude=amplitude_cm / au2wavenumber)
+
+
+def max_diff(a, b, fields=("observables", "ado")):
+    return max((getattr(a, f) - getattr(b, f).to(getattr(a, f).device))
+               .abs().max().item() for f in fields)
+
+
+def phase_heom_driven():
+    """Driven HEOM at the FMO flagship (680 ADOs, 4000 RK4 steps of 10 au)
+    through the coupling kernel: launch count 4 x nt, against the driven
+    einsum run on the card, trace error, the first window against the CPU,
+    a zero-amplitude drive against the undriven run, and a run
+    checkpointed every 7 windows against the single run."""
+    from pyqed_tpu_torch import FMO
+    from pyqed_tpu_torch.core.diagnostics import load_checkpoint
+    m = FMO()
+    sol = m.heom(**FLAGSHIP, device=DEVICE)
+    X, pulse = fmo_drive()
+    rho0 = m.initial_state(0)
+    kw = dict(dt=DT, nt=NT, nout=NOUT, e_ops=m.site_projectors())
+    drive = dict(edip=X, pulse=pulse.efield)
+    res, counts, wall = counted_run(sol, rho0, "driven FMO", **drive, **kw)
+    expect_only(counts, "heom_coupling", 4 * NT, "driven FMO")
+    trace_err = (res.observables.real.sum(dim=1) - 1.0).abs().max().item()
+    d_ein = max_diff(res, sol.run(rho0, kernel="einsum", **drive, **kw))
+    cpu = m.heom(**FLAGSHIP, device="cpu").run(
+        rho0, dt=DT, nt=NOUT, nout=NOUT, e_ops=m.site_projectors(), **drive)
+    d_cpu = (res.observables[:2].cpu() - cpu.observables).abs().max().item()
+    undriven = sol.run(rho0, **kw)
+    zero = sol.run(rho0, edip=X, pulse=fmo_drive(0.0)[1].efield, **kw)
+    d_zero = max_diff(zero, undriven)
+    effect = (res.observables - undriven.observables).abs().max().item()
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build")
+    os.makedirs(ck_dir, exist_ok=True)
+    ck = os.path.join(ck_dir, "chip_smoke_heom_checkpoint.npz")
+    chunked = sol.run(rho0, checkpoint=ck, checkpoint_every=7, **drive, **kw)
+    step, (ados_ck,), _ = load_checkpoint(ck)
+    os.remove(ck)
+    d_ck = max(max_diff(chunked, res, ("observables", "ado", "states")),
+               (ados_ck.to(DEVICE) - res.ado).abs().max().item())
+    log(f"[driven] FMO flagship nado={res.ado.shape[0]} nt={NT} dt={DT}, "
+        f"X = |1><2| + |2><1| under a GaussianPulse ({DRIVE_CM[0]:g} cm^-1, "
+        f"{DRIVE_FS[0]:g} fs, at {DRIVE_FS[1]:g} fs, {DRIVE_CM[1]:g} cm^-1) "
+        f"in {wall:.2f} s, launches {counts} (expected heom_coupling "
+        f"{4 * NT}); trace err {trace_err:.2e} (tol 1e-10), |cuda - einsum| "
+        f"{d_ein:.2e} (tol 1e-10), first window vs CPU {d_cpu:.2e} (tol "
+        f"1e-10), amplitude 0 vs undriven {d_zero:.2e} (tol 1e-14), "
+        f"checkpoint_every=7 (last at window {step}) vs single {d_ck:.2e} "
+        f"(tol 1e-12); the drive moves the populations by up to "
+        f"{effect:.3e}")
+    for name, val, tol in (("trace error", trace_err, 1e-10),
+                           ("cuda vs einsum", d_ein, 1e-10),
+                           ("first window vs CPU", d_cpu, 1e-10),
+                           ("amplitude 0 vs undriven", d_zero, 1e-14),
+                           ("chunked vs single", d_ck, 1e-12)):
+        if not val <= tol:
+            raise AssertionError(f"driven FMO: {name} {val:.3e} > {tol:g}")
+    if not effect > 1e-6 or step != NT // NOUT:
+        raise AssertionError(f"driven FMO: the drive moved the populations "
+                             f"by {effect:.3e}; last checkpoint {step}")
+    return {"launches": counts["heom_coupling"], "trace_err": trace_err,
+            "vs_einsum": d_ein, "vs_cpu": d_cpu, "zero_vs_undriven": d_zero,
+            "chunked_vs_single": d_ck, "run_s": wall}
+
+
+def phase_heom_correlations():
+    """HEOM absorption at FMO lmax 1 (15 ADOs, D = 735; the steady state
+    from the host SVD of the dense Liouvillian built on the card), card
+    against CPU; correlation_2op_1t at the flagship through the kernel
+    against einsum."""
+    from pyqed_tpu_torch import FMO
+    from pyqed_tpu_torch.units import au2wavenumber
+    m = FMO()
+    X, _ = fmo_drive()
+    w = np.linspace(50.0, 600.0, ABS_NW) / au2wavenumber
+    lmax1 = dict(FLAGSHIP, lmax=1)
+    sol = m.heom(**lmax1, device=DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    S = sol.absorption(w, X, ntau=ABS_NTAU)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_only(counts, "heom_coupling", 4 * (ABS_NTAU - 1), "absorption")
+    S_cpu = m.heom(**lmax1, device="cpu").absorption(w, X, ntau=ABS_NTAU)
+    d_abs = float(np.max(np.abs(S - S_cpu)) / np.max(np.abs(S_cpu)))
+    if not (np.all(np.isfinite(S)) and d_abs <= 1e-10):
+        raise AssertionError(f"absorption: card vs CPU rel {d_abs:.3e}")
+    fl = m.heom(**FLAGSHIP, device=DEVICE)
+    rho0 = m.initial_state(0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    c = fl.correlation_2op_1t(rho0, X, X, DT, CORR_NT)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    counts_c = read_counts()
+    expect_only(counts_c, "heom_coupling", 4 * CORR_NT, "correlation_2op_1t")
+    d_c = rel(c, fl.correlation_2op_1t(rho0, X, X, DT, CORR_NT,
+                                        kernel="einsum"))
+    nado = sol.rhs_fn(torch.complex128, kernel="einsum")[1]
+    log(f"[driven] HEOM absorption FMO lmax=1 (nado={nado}, D="
+        f"{nado * 49}) on {ABS_NW} "
+        f"frequencies, ntau={ABS_NTAU}: {wall:.2f} s, launches {counts}, "
+        f"card vs CPU rel {d_abs:.2e} (tol 1e-10), peak at "
+        f"{w[int(np.argmax(S))] * au2wavenumber:.1f} cm^-1; "
+        f"correlation_2op_1t at the flagship {CORR_NT} steps in "
+        f"{wall_c:.2f} s, launches {counts_c}, |cuda - einsum| rel "
+        f"{d_c:.2e} (tol 1e-10)")
+    if not (finite(c) and d_c <= 1e-10):
+        raise AssertionError(f"correlation_2op_1t: cuda vs einsum {d_c:.3e}")
+    return {"absorption_vs_cpu": d_abs, "absorption_s": wall,
+            "absorption_launches": counts["heom_coupling"],
+            "corr_vs_einsum": d_c, "corr_launches": counts_c["heom_coupling"]}
+
+
+def polariton_system(nmol=2, ncav=5):
+    """bench.py:698-726 (_polariton_system): nmol two-level molecules x a
+    cavity of ncav levels, Jaynes-Cummings coupling; (H, mu), n = 20."""
+    nm = 2 ** nmol
+    n = nm * ncav
+    H = np.zeros((n, n))
+    wc, wm, g0 = 1.0, 1.0, 0.1
+    for i in range(nm):
+        nex = bin(i).count("1")
+        for k in range(ncav):
+            H[i * ncav + k, i * ncav + k] = wm * nex + wc * k
+    # sigma^+ a + h.c. per molecule
+    for m in range(nmol):
+        for i in range(nm):
+            if not (i >> m) & 1:
+                j = i | (1 << m)
+                for k in range(1, ncav):
+                    a = i * ncav + k
+                    b = j * ncav + (k - 1)
+                    H[b, a] += g0 * np.sqrt(k)
+                    H[a, b] += g0 * np.sqrt(k)
+    mu = np.zeros((n, n))
+    for m in range(nmol):
+        for i in range(nm):
+            if not (i >> m) & 1:
+                j = i | (1 << m)
+                for k in range(ncav):
+                    mu[i * ncav + k, j * ncav + k] = 1.0
+                    mu[j * ncav + k, i * ncav + k] = 1.0
+    return H, mu
+
+
+def polariton_scan(H, mu, omegas, nt, keep):
+    """bench.py:729-751's drive-frequency scan on the card: one batched RK4
+    of (n, n) @ (n, B) under H + E0 cos(w t) mu, built from the port's
+    rk4_step_t, from the ground state. Returns P (n, B) after ``keep``
+    steps and after ``nt``."""
+    from pyqed_tpu_torch.core.dynamics import rk4_step_t
+    dev = torch.device(DEVICE)
+    Ht = torch.as_tensor(H, dtype=torch.complex128, device=dev)
+    mt = torch.as_tensor(mu, dtype=torch.complex128, device=dev)
+    w = torch.as_tensor(omegas, dtype=torch.float64, device=dev)
+
+    def rhs(P, t):
+        c = POL_E0 * torch.cos(w * t)
+        return -1j * (Ht @ P + (mt @ P) * c[None, :])
+
+    step = rk4_step_t(rhs)
+    P = torch.zeros((H.shape[0], len(omegas)), dtype=torch.complex128,
+                    device=dev)
+    P[0] = 1.0
+    t, kept = 0.0, None
+    for k in range(nt):
+        P = step(P, t, POL_DT)
+        t = t + POL_DT
+        if k + 1 == keep:
+            kept = P.clone()
+    return kept, P
+
+
+def polariton_field(w):
+    """E(t) for SESolver's H - E(t) mu that gives the scan's
+    H + E0 cos(w t) mu: -E0 cos(w t), a float."""
+    return lambda t: -POL_E0 * math.cos(w * t)
+
+
+def phase_polariton():
+    """Config #5 at the bench's shape (n = 20, complex128): SESolver.run
+    under the drive at 4 of the 512 frequencies, card against CPU; the
+    512-column scan for 20,000 steps, whose 4 columns equal those runs over
+    the shared 2,000 steps; Floquet quasienergies at 8 frequencies, card
+    against CPU. No hand-written kernel lies on this path: every launch
+    count stays 0."""
+    from pyqed_tpu_torch import SESolver
+    from pyqed_tpu_torch.floquet import Floquet
+    H, mu = polariton_system()
+    n = H.shape[0]
+    omegas = np.linspace(0.8, 1.2, POL_NW)
+    psi0 = np.eye(n)[0].astype(complex)
+    torch.cuda.synchronize()
+    reset_counts()
+    kw = dict(psi0=psi0, dt=POL_DT, Nt=POL_SE_NT, nout=POL_SE_NOUT,
+              edip=mu)
+    se, d_se = {}, 0.0
+    for j in POL_SE_COLS:
+        f = polariton_field(omegas[j])
+        se[j] = SESolver(H, device=DEVICE).run(pulse=f, **kw)
+        cpu = SESolver(H, device="cpu").run(pulse=f, **kw)
+        d_se = max(d_se, (se[j].states.cpu() - cpu.states).abs().max().item())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kept, P = polariton_scan(H, mu, omegas, POL_SCAN_NT, POL_SE_NT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d_scan = max((kept[:, j] - se[j].psi).abs().max().item()
+                 for j in POL_SE_COLS)
+    spec = 1.0 - P[0].abs() ** 2
+    norm_err = (torch.linalg.norm(P, dim=0) - 1.0).abs().max().item()
+    d_fl = 0.0
+    for j in POL_FLOQUET_COLS:
+        q = [Floquet(H, mu, omegas[j], POL_E0, device=d).quasienergies(
+            first_bz=False) for d in (DEVICE, "cpu")]
+        d_fl = max(d_fl, rel(q[0].cpu(), q[1]))
+        folded = Floquet(H, mu, omegas[j], POL_E0,
+                         device=DEVICE).quasienergies()
+        if not (bool(torch.isfinite(folded).all())
+                and folded.abs().max().item() <= omegas[j] / 2):
+            raise AssertionError(f"Floquet at w={omegas[j]}: quasienergies "
+                                 "outside the first zone")
+    counts = read_counts()
+    expect_only(counts, "heom_coupling", 0, "polariton")
+    rate = POL_SCAN_NT * POL_NW / wall
+    peak = omegas[int(torch.argmax(spec).item())]
+    log(f"[polariton] config #5 n={n}: SESolver.run at w = "
+        f"{', '.join(f'{omegas[j]:.4f}' for j in POL_SE_COLS)} for "
+        f"{POL_SE_NT} steps of {POL_DT}, card vs CPU {d_se:.2e} (tol 1e-10); "
+        f"the {POL_NW}-column scan, {POL_SCAN_NT} steps in {wall:.2f} s "
+        f"({rate:.4g} trajectory-steps/s, first call), its columns vs "
+        f"SESolver at step {POL_SE_NT} {d_scan:.2e} (tol 1e-12), norm drift "
+        f"{norm_err:.2e}, ground-state depletion peaks at w = {peak:.4f}; "
+        f"Floquet quasienergies (nt=31) at {len(POL_FLOQUET_COLS)} "
+        f"frequencies card vs CPU rel {d_fl:.2e} (tol 1e-10); launches "
+        f"{counts}")
+    if not (d_se <= 1e-10 and d_scan <= 1e-12 and d_fl <= 1e-10
+            and finite(P) and norm_err <= 1e-6):
+        raise AssertionError(f"polariton: SESolver {d_se:.3e}, scan "
+                             f"{d_scan:.3e}, Floquet {d_fl:.3e}, norm "
+                             f"{norm_err:.3e}")
+    return {"sesolver_vs_cpu": d_se, "scan_vs_sesolver": d_scan,
+            "floquet_vs_cpu": d_fl, "scan_s": wall,
+            "scan_trajectory_steps_per_s": rate, "norm_drift": norm_err}
+
+
+def run_profile(sol, steps=40, **kw):
+    """Device time per RK4 step of HEOMSolver.run itself at the flagship
+    by kernel (:func:`profile_steps`): one run of ``steps`` steps in one
+    window after a warm-up run, its set-up included (``kw`` go to run(),
+    e.g. the drive)."""
+    rho0 = np.diag([1.0] + [0.0] * (sol.n - 1))
+
+    def advance():
+        sol.run(rho0, dt=DT, nt=steps, nout=steps, kernel="cuda", **kw)
+
+    advance()
+    return profile_steps(advance, 1, per=steps)
+
+
+def host_profile(fn, args, calls=200):
+    """Host time per call of ``fn(*args)`` by aten op (torch.profiler, CPU
+    events only; the profiler's own cost per op is included): (total self
+    us per call, rows of (self us per call, ops per call, name), longest
+    first)."""
+    for _ in range(10):
+        fn(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    rows = sorted(((evt.self_cpu_time_total / calls, evt.count / calls,
+                    evt.key) for evt in prof.key_averages()
+                   if evt.self_cpu_time_total > 0), reverse=True)
+    return sum(r[0] for r in rows), rows
+
+
+def phase_driven_timing(card):
+    """Times of the driven slice, recorded and not claimed: HEOM run()
+    steps/s at the flagship driven and undriven in turns, the host time of
+    one right-hand side (in all and by aten op), the device profile of
+    run()'s step driven and undriven, and SESolver.run steps/s at config
+    #5."""
+    from pyqed_tpu_torch import FMO, SESolver
+    m = FMO()
+    sol = m.heom(**FLAGSHIP, device=DEVICE)
+    X, pulse = fmo_drive()
+    rates = {"undriven": [], "driven": []}
+    for which in ("undriven", "driven", "driven", "undriven") * 2:
+        kw = dict(edip=X, pulse=pulse.efield) if which == "driven" else {}
+        rates[which].append(steps_per_s(m, sol, kernel="cuda",
+                                        e_ops=m.site_projectors(), **kw))
+    # host enqueue per right-hand side, and per field evaluation
+    rhs, nado = sol.rhs_fn(torch.complex128)
+    rhs_d, _ = sol.rhs_fn(torch.complex128, edip=X)
+    y = torch.zeros((nado, sol.n, sol.n), dtype=torch.complex128,
+                    device=DEVICE)
+    host = {"undriven": [], "driven": []}
+    for which in ("undriven", "driven", "driven", "undriven"):
+        host[which].append(host_ms(rhs, (y,)) if which == "undriven"
+                           else host_ms(rhs_d, (y, 1e-4)))
+    t0 = time.perf_counter()
+    for i in range(10000):
+        float(pulse.efield(DT * i))
+    field_us = (time.perf_counter() - t0) / 10000 * 1e6
+    aten = {"undriven": host_profile(rhs, (y,)),
+            "driven": host_profile(rhs_d, (y, 1e-4))}
+    total, rows = run_profile(sol, edip=X, pulse=pulse.efield)
+    total_u, rows_u = run_profile(sol)
+    busy = total / 1e6 * max(rates["driven"])
+    log(f"[time] run() FMO flagship complex128 kernel=cuda steps/s: driven "
+        + ", ".join(f"{r:.0f}" for r in rates["driven"]) + "; undriven "
+        + ", ".join(f"{r:.0f}" for r in rates["undriven"]) + f" ({card})")
+    log(f"[time] host enqueue per right-hand side: driven "
+        f"{us(host['driven'])} us, undriven {us(host['undriven'])} us; "
+        f"GaussianPulse.efield of a float on the host {field_us:.2f} us "
+        f"({card})")
+    for which, (tot, arows) in aten.items():
+        log(f"[time] host per {which} right-hand side by aten op, "
+            f"torch.profiler CPU events over 200 calls: {tot:.1f} us in "
+            f"aten ops ({card})")
+        for us_, count, key in arows[:10]:
+            log(f"[time]   {us_:8.2f} us per call, {count:4.1f} ops "
+                f"{key[:80]}")
+    log(f"[time] HEOMSolver.run() FMO flagship RK4 step, torch.profiler over "
+        f"a 40-step run, set-up included: device {total:.1f} us per step "
+        f"driven, {total_u:.1f} undriven; busy share against the fastest "
+        f"driven run() {busy:.2f} ({card})")
+    for label, rws in (("driven", rows), ("undriven", rows_u)):
+        for us_, count, key in rws[:12]:
+            log(f"[time]   {label} {us_:8.2f} us per step, {count:5.2f} "
+                f"kernels {key[:80]}")
+    H, mu = polariton_system()
+    psi0 = np.eye(H.shape[0])[0].astype(complex)
+    se = SESolver(H, device=DEVICE)
+    f = polariton_field(1.0)
+    se_rates = []
+    for _ in range(2):
+        walls = []
+        for steps in (POL_SE_NOUT, POL_SE_NT):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            se.run(psi0=psi0, dt=POL_DT, Nt=steps, nout=POL_SE_NOUT,
+                   pulse=f, edip=mu)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        se_rates.append((POL_SE_NT - POL_SE_NOUT) / (walls[1] - walls[0]))
+    log(f"[time] SESolver.run() config #5 n={H.shape[0]} driven complex128: "
+        + ", ".join(f"{r:.0f}" for r in se_rates) + f" steps/s ({card})")
+    return {"driven_steps_per_s": max(rates["driven"]),
+            "undriven_steps_per_s": max(rates["undriven"]),
+            "driven_rhs_host_ms": min(host["driven"]),
+            "undriven_rhs_host_ms": min(host["undriven"]),
+            "field_host_us": field_us,
+            "driven_rhs_aten_host_us": aten["driven"][0],
+            "undriven_rhs_aten_host_us": aten["undriven"][0],
+            "driven_step_device_us": total,
+            "undriven_run_step_device_us": total_u,
+            "sesolver_steps_per_s": max(se_rates)}
+
+
 # ------------------------------------------------------------------ 5
 def event_ms(fn, args, iters=200, warmup=20):
     for _ in range(warmup):
@@ -945,11 +1363,12 @@ def graph_ms(fn, args, calls=50, reps=20):
     return start.elapsed_time(end) / (reps * calls)
 
 
-def profile_steps(advance, steps):
+def profile_steps(advance, steps, per=None):
     """Device time of ``steps`` calls of ``advance()`` by kernel name
     (torch.profiler; only the device's own events, so time under an aten
-    op is not counted twice): (total us per step, rows of (us per step,
-    kernels per step, name), longest first)."""
+    op is not counted twice), per ``per`` steps (``steps`` unless given):
+    (total us per step, rows of (us per step, kernels per step, name),
+    longest first)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -965,7 +1384,8 @@ def profile_steps(advance, steps):
         if dev_us is None:
             dev_us = evt.self_cuda_time_total
         if dev_us > 0:
-            rows.append((dev_us / steps, evt.count / steps, evt.key))
+            rows.append((dev_us / (per or steps), evt.count / (per or steps),
+                         evt.key))
     rows.sort(reverse=True)
     return sum(r[0] for r in rows), rows
 
@@ -1654,12 +2074,16 @@ def main():
     lb_launches = phase_lindblad_main()
     phase_redfield()
     slices = {"2des": {"photon_echo": phase_2des(), "tdes": phase_tdes()},
-              "deom": {"run": phase_deom(), "resolvent": phase_resolvent()}}
+              "deom": {"run": phase_deom(), "resolvent": phase_resolvent()},
+              "heom_driven": {"run": phase_heom_driven(),
+                              "correlations": phase_heom_correlations()},
+              "polariton": phase_polariton()}
     times = phase_timing(card, shapes)
     spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0
     lb_times = phase_lindblad_timing(card)
     slices["timing"] = phase_2des_timing(card)
+    slices["heom_driven"]["timing"] = phase_driven_timing(card)
     slices["card"] = card
     t_kern, t_plain, (b_ms, b_by) = times[("fmo", torch.complex128)]
     kernels = [{

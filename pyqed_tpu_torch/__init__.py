@@ -21,7 +21,14 @@ Ported so far:
   time-domain 2DES of ``signal/tdes``, the rest of ``ops/math``, and the
   DEOM solver (``DEOMSolver``, ``DEOMBath``) with its resolvent response
   maps by host eig or by batched GMRES on the device. No TPU kernel lies
-  on this path: it runs on cuBLAS and cuFFT.
+  on this path: it runs on cuBLAS and cuFFT;
+- the driven-dynamics slice: the rest of ``HEOMSolver`` (the drive
+  ``run(edip=, pulse=)`` through the coupling kernel, checkpoints, the
+  dense Liouvillian, steady state and propagator, the correlation
+  functions, ``absorption``) and ``HEOMSolverDrude``; laser pulses and
+  biphotons (``models/pulse``), ``SESolver`` and the dynamics of ``Mol``,
+  the cavity polariton (``models/cavity``) and Floquet theory
+  (``floquet``).
 
 Entry points run on the card (``device=None`` means ``cuda`` and raises
 without one) unless the caller passes ``device="cpu"``. The package
@@ -33,9 +40,16 @@ __version__ = "0.1.0"
 from . import units
 from .core.result import Result, load_result
 from .models.named import FMO
-from .models.mol import Mol, mls
+from .models.mol import (Mol, SESolver, mls, tdse, quantum_dynamics,
+                         driven_dynamics)
+from .models.pulse import (
+    Pulse, GaussianPulse, ChirpedPulse, Biphoton, intensity_to_field,
+    Analyser, schmidt_decompose, schmidt_number, hom_schmidt,
+    field_to_intensity, fwhm_to_std, std_to_fwhm,
+)
+from .models.cavity import Cavity, Composite, Polariton, QRM
 from .open.bath import DrudeBath
-from .open.heom import HEOMSolver, solver_from_reference
+from .open.heom import HEOMSolver, HEOMSolverDrude, solver_from_reference
 from .grid import SPO, SPO2, SPO3, SPON, SPO2NH, ResultSPO
 from .ops.wavepacket import gwp
 from .config import default_complex, default_real
@@ -44,6 +58,7 @@ from .open.lindblad import (LindbladSolver, LiouvilleSolver, Lindblad_solver,
 from .open.redfield import RedfieldSolver, redfield_tensor
 from .open.deom import DEOMSolver, DEOMBath
 from . import signal
+from . import floquet
 from .ops.linalg import (
     dag, dagger, commutator, comm, anticommutator, anticomm, tensor,
     tensor_power, ptrace, transform, basis_transform, obs, obs_dm, expect,

@@ -1,2 +1,7 @@
 from .named import FMO
-from .mol import Mol, SESolver, mls
+from .mol import Mol, SESolver, mls, tdse
+from .pulse import (
+    Pulse, GaussianPulse, ChirpedPulse, Biphoton, intensity_to_field,
+    std_to_fwhm, jsa, jta, rdm, hom,
+)
+from .cavity import Cavity, Composite, Polariton, QRM

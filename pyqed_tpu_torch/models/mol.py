@@ -7,20 +7,32 @@ eigenstates, and the spectroscopy methods that hand it to
 :mod:`pyqed_tpu_torch.signal.sos`.
 
 The molecule's operators are tensors where they were given (CPU tensors
-for array-likes); the spectroscopy methods take ``device`` and run there
-(the card when None). Wave-function dynamics (``run``,
-``quantum_dynamics``, ``driven_dynamics``, ``Floquet``) and ``SESolver``
-belong to the polariton slice and are not yet ported.
+for array-likes); the spectroscopy and dynamics methods take ``device``
+and run there (the card when None).
+
+``SESolver`` propagates the time-dependent Schrödinger equation with RK4
+(or, for a constant H, ``method='expm'``: one eigendecomposition, then a
+diagonal phase per step) through :func:`~pyqed_tpu_torch.core.dynamics.
+run_solver`. The driven form is H(t) = H0 − Σ_k E_k(t) μ_k (reference:
+pyqed/mol.py:1905); the fields are evaluated on the host, once per RK4
+stage, as Python floats.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import not_yet_ported
-from ..ops.linalg import as_tensor, isdiag, obs
+from ..config import complex_dtype_for, resolve_device
+from ..core.dynamics import rk4_step_t, run_solver
+from ..core.result import Result
+from ..ops.linalg import as_tensor, dag, isdiag, obs
 from ..ops.operators import basis
 from ..units import au2ev
+
+
+def tdse(psi, H):
+    """RHS of the TDSE: -i H psi (reference: pyqed/mol.py:1322)."""
+    return -1j * (H @ psi)
 
 
 class Mol:
@@ -164,20 +176,52 @@ class Mol:
         dt = torch.promote_types(psi.dtype, self.H.dtype)
         return obs(psi.to(dt), self.H.to(dt))
 
+    @classmethod
+    def from_reference(cls, ref):
+        """The port's Mol with the arrays of a JAX Mol ``ref``: its H,
+        dipole, lowering operator, rms dipole and decay rates."""
+        def host(a):
+            return None if a is None else np.asarray(a)
+        m = cls(host(ref.H), edip=host(ref.edip),
+                lowering=host(getattr(ref, "lowering", None)),
+                edip_rms=host(ref._edip_rms), gamma=host(ref.gamma))
+        m.dephasing = ref.dephasing
+        return m
+
     # -------------------------------------------------------------- dynamics
-    def run(self, *args, **kwargs):
-        raise not_yet_ported("Mol.run")
+    def run(self, psi0=None, dt=0.01, e_ops=None, nt=1, Nt=None, nout=1,
+            t0=0.0, pulse=None, edip=None, method="rk4", store_states=True,
+            device=None):
+        """Wave-function dynamics under H, or under H − E(t) μ with a
+        ``pulse`` (μ the molecule's dipole unless ``edip`` is given), on
+        ``device`` (reference: pyqed/mol.py:628)."""
+        nt = Nt if Nt is not None else nt
+        if psi0 is None:
+            psi0 = self.groundstate()
+        if pulse is not None and edip is None:
+            edip = self.edip
+        return SESolver(self.H, device=device).run(
+            psi0=psi0, dt=dt, Nt=nt, e_ops=e_ops, nout=nout, t0=t0,
+            pulse=pulse, edip=edip, method=method, store_states=store_states)
 
     evolve = run
 
-    def quantum_dynamics(self, *args, **kwargs):
-        raise not_yet_ported("Mol.quantum_dynamics")
+    def quantum_dynamics(self, psi0, dt=0.001, Nt=1, e_ops=None, nout=1,
+                         t0=0.0, device=None):
+        return SESolver(self.H, device=device).run(
+            psi0=psi0, dt=dt, Nt=Nt, e_ops=e_ops, nout=nout, t0=t0)
 
-    def driven_dynamics(self, *args, **kwargs):
-        raise not_yet_ported("Mol.driven_dynamics")
+    def driven_dynamics(self, psi0, pulse, dt=0.001, Nt=1, e_ops=None,
+                        nout=1, t0=0.0, device=None):
+        return SESolver(self.H, device=device).run(
+            psi0=psi0, dt=dt, Nt=Nt, e_ops=e_ops, nout=nout, t0=t0,
+            pulse=pulse, edip=self.edip)
 
-    def Floquet(self, *args, **kwargs):
-        raise not_yet_ported("Mol.Floquet")
+    def Floquet(self, omegad, E0, nt=31, device=None):
+        """Sambe-space Floquet treatment of this system under the drive
+        H0 − E0 cos(omegad t) μ (:class:`pyqed_tpu_torch.floquet.Floquet`)."""
+        from ..floquet import Floquet as _Floquet
+        return _Floquet(self.H, self.edip, omegad, E0, nt=nt, device=device)
 
     def deom(self, bath, coupling=None, lmax=4, decomposition="pade",
              nexp=2, **kwargs):
@@ -258,11 +302,147 @@ def _conj_transpose(a):
 
 
 class SESolver:
-    """Time-dependent Schrödinger equation solver: not yet ported (the
-    polariton slice)."""
+    """Time-dependent Schrödinger equation solver on ``device`` (the card
+    when None; reference: pyqed/mol.py:1369)."""
 
-    def __init__(self, *args, **kwargs):
-        raise not_yet_ported("SESolver")
+    def __init__(self, H=None, device=None):
+        self.device = resolve_device(device)
+        self.H = None if H is None else as_tensor(H).to(self.device)
+        self.groundstate = None
+
+    def run(self, psi0=None, dt=0.01, Nt=1, e_ops=None, nout=1, t0=0.0,
+            edip=None, pulse=None, method="rk4", store_states=True,
+            nt=None) -> Result:
+        """Propagate ``psi0`` for ``Nt`` steps of ``dt`` (``nt`` is an
+        alias), sampling every ``nout``. Without a pulse ``method`` is
+        'rk4' or 'expm'; with one, RK4 under H(t) = H0 − Σ_k E_k(t) μ_k,
+        where ``pulse`` is a pulse (its ``efield`` is used) or a callable
+        of a float that returns a float, or a list of them, one per dipole
+        in ``edip``."""
+        if nt is not None:
+            Nt = nt
+        if psi0 is None:
+            psi0 = self.groundstate
+        psi0 = as_tensor(psi0).to(self.device)
+        H0 = self.H
+        cdtype = complex_dtype_for(H0, psi0)
+        psi0 = psi0.to(cdtype)
+        H0 = H0.to(cdtype)
+
+        if pulse is None:
+            if method == "expm":
+                # exact stepping: psi -> V e^{-i w dt} V† psi
+                w, V = torch.linalg.eigh(H0)
+                phase = torch.exp(-1j * w * dt)
+                Vh = dag(V)
+
+                def step(psi, t):
+                    return V @ (phase * (Vh @ psi))
+            else:
+                rk4 = rk4_step_t(lambda y, tt: -1j * (H0 @ y))
+
+                def step(psi, t):
+                    return rk4(psi, t, dt)
+        else:
+            pulses = pulse if isinstance(pulse, (list, tuple)) else [pulse]
+            if edip is None:
+                raise ValueError(
+                    "Electric dipole must be provided for laser-driven "
+                    "dynamics.")
+            edips = (edip if isinstance(edip, (list, tuple))
+                     else [edip] * len(pulses))
+            edips = [as_tensor(d).to(self.device, cdtype) for d in edips]
+            fields = [p.efield if hasattr(p, "efield") else p
+                      for p in pulses]
+
+            def Ht(t):
+                H = H0
+                for d, E in zip(edips, fields):
+                    H = H - float(E(t)) * d
+                return H
+
+            rk4 = rk4_step_t(lambda y, tt: -1j * (Ht(tt) @ y))
+
+            def step(psi, t):
+                return rk4(psi, t, dt)
+
+        return run_solver(step, psi0, dt, Nt, e_ops=e_ops, nout=nout, t0=t0,
+                          store_states=store_states, is_dm=False)
+
+    def propagator(self, dt, Nt, method="diag"):
+        from ..ops.expm import propagators
+        return propagators(self.H, dt, Nt, method=method)
+
+    # ---------------------------------------------------- correlation suite
+    def _ops(self, *ops):
+        """The operators and states as tensors of one complex dtype on the
+        solver's device."""
+        dtype = complex_dtype_for(self.H, *ops)
+        return [as_tensor(o).to(self.device, dtype) for o in ops]
+
+    def correlation_3op_1t(self, psi0, oplist, dt, Nt):
+        """<A B(t) C> (reference: pyqed/mol.py:1475). Returns (Nt,)."""
+        psi0, a_op, b_op, c_op = self._ops(psi0, *oplist)
+        ket = self.run(psi0=c_op @ psi0, dt=dt, Nt=Nt).states
+        bra = self.run(psi0=dag(a_op) @ psi0, dt=dt, Nt=Nt).states
+        return torch.einsum("ti, ij, tj -> t", bra.conj(), b_op, ket)[:Nt]
+
+    def correlation_2op_1t(self, psi0, oplist, dt, Nt):
+        a_op, b_op = oplist
+        eye = torch.eye(self.H.shape[0], dtype=self.H.dtype)
+        return self.correlation_3op_1t(psi0, [a_op, b_op, eye], dt, Nt)
+
+    def correlation_3op_2t(self, psi0, oplist, dt, Nt, Ntau):
+        """<A(t) B(t+tau) C(t)> (reference: pyqed/mol.py:1503): one pair
+        of Ntau-step runs per t. Returns (Nt, Ntau)."""
+        psi0, a_op, b_op, c_op = self._ops(psi0, *oplist)
+        psi_t = self.run(psi0=psi0, dt=dt, Nt=Nt).states[:Nt]
+        rows = []
+        for psi in psi_t:
+            ket = self.run(psi0=c_op @ psi, dt=dt, Nt=Ntau).states[:Ntau]
+            bra = self.run(psi0=dag(a_op) @ psi, dt=dt, Nt=Ntau).states[:Ntau]
+            rows.append(torch.einsum("ti, ij, tj -> t", bra.conj(), b_op,
+                                     ket))
+        return torch.stack(rows)
+
+    def correlation_4op_1t(self, psi0, oplist, dt=0.005, Nt=1):
+        a, b, c, d = self._ops(*oplist)
+        return self.correlation_3op_1t(psi0, [a, b @ c, d], dt, Nt)
+
+    def correlation_4op_2t(self, psi0, oplist, dt=0.005, Nt=1, Ntau=1):
+        a, b, c, d = self._ops(*oplist)
+        return self.correlation_3op_2t(psi0, [a, b @ c, d], dt, Nt, Ntau)
+
+
+def quantum_dynamics(ham, psi0, dt=0.001, Nt=1, obs_ops=None, nout=1,
+                     t0=0.0, device=None):
+    """Field-free TDSE propagation, reference drop-in (reference:
+    pyqed/phys.py:1325): a :class:`SESolver` run returning a Result."""
+    return SESolver(ham, device=device).run(psi0=psi0, dt=dt, Nt=Nt,
+                                            e_ops=obs_ops, nout=nout, t0=t0)
+
+
+def driven_dynamics(ham, dip, psi0, pulse, dt=0.001, Nt=1, obs_ops=None,
+                    nout=1, t0=0.0, device=None):
+    """Laser-driven TDSE propagation, reference drop-in (reference:
+    pyqed/phys.py:1393): H(t) = H - E(t) mu."""
+    return SESolver(ham, device=device).run(
+        psi0=psi0, dt=dt, Nt=Nt, e_ops=obs_ops, nout=nout, t0=t0,
+        pulse=pulse, edip=dip)
+
+
+def read_input(fname_e, fname_edip, g_included=True):
+    """Read energy levels and Cartesian dipole-moment files of a quantum
+    chemistry output (reference: pyqed/mol.py read_input). Returns
+    (E (nstates,), edip (nstates, nstates, 3)) as NumPy arrays."""
+    E = np.genfromtxt(fname_e)
+    if not g_included:
+        E = np.insert(E, 0, 0.0)
+    nstates = len(E)
+    edip = np.zeros((nstates, nstates, 3))
+    for k in range(3):
+        edip[:, :, k] = np.genfromtxt(fname_edip[k], unpack=False)
+    return E, edip
 
 
 def mls(dim=3):

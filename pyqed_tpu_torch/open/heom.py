@@ -12,18 +12,22 @@ The hierarchy is flattened at setup into one ``(nado, n, n)`` tensor plus
 static neighbour maps, and the right-hand side is a few batched torch
 operations (or the hand-written CUDA coupling kernel, ``kernel='cuda'``).
 The step loop is a Python loop over a fixed-shape RK4/Euler step that
-never synchronises with the host; observables are written on the device,
-one row per window of ``nout`` steps.
+never synchronises with the host (a checkpoint write does); observables
+are written on the device, one row per window of ``nout`` steps. A laser
+drive H + E(t) μ takes its field from a callable evaluated on the host.
 """
 from __future__ import annotations
 
 import itertools
+import warnings
 
 import numpy as np
 import torch
 
 from ..config import (complex_dtype_for, not_yet_ported, numpy_dtype_of,
                       resolve_device)
+from ..core.diagnostics import load_checkpoint, save_checkpoint
+from ..core.dynamics import rk4_step
 from ..core.result import Result
 from ..ops import kernels as kn
 from .bath import DrudeBath
@@ -176,35 +180,56 @@ class HEOMSolver:
               else nus.real.astype(rdtype))
         return keys, plus_idx, minus_idx, Q, c, nu
 
-    def rhs_fn(self, dtype, kernel=None):
+    def rhs_fn(self, dtype, kernel=None, edip=None):
         """The hierarchy RHS ``ados (nado, n, n) -> d ados/dt`` and nado.
 
         ``dtype`` is torch.complex128 or torch.complex64; ``kernel`` as in
-        the class docstring (None: the solver's kernel, else automatic)."""
+        the class docstring (None: the solver's kernel, else automatic).
+        With a dipole ``edip`` the closure is ``rhs(ados, E)``: a field
+        ``E`` (a Python float) adds the drive −i E [μ, ρ] to every ADO,
+        the H + E(t) μ of the JAX package (pyqed_tpu/open/heom.py:416-426),
+        for every kernel as one more product of the ADO stack with the
+        drive's (n², n²) superoperator."""
         kernel = _kernel_name(kernel) or self.kernel
         keys, plus_idx, minus_idx, Q, c, nu = self._build(dtype)
         nado = keys.shape[0]
         dev = self.device
-        H = self._H_np
         if kernel is None:
             kernel = "cuda" if dev.type == "cuda" else "einsum"
-        args = (H, Q, c, nu, keys, plus_idx, minus_idx)
+        args = (self._H_np, Q, c, nu, keys, plus_idx, minus_idx)
         if kernel == "cuda":
-            return kn.heom_rhs_coupling_factory(*args, dtype=dtype,
-                                                device=dev), nado
-        if kernel == "levels":
-            return kn.heom_rhs_levels_xla_factory(*args, dtype=dtype,
-                                                  device=dev), nado
-        if kernel == "rowcol":
-            return kn.heom_rhs_rowcol_factory(*args, dtype=dtype,
-                                              device=dev), nado
-        damp = kn.damp_tensor(keys @ nu, dtype, dev)
-        if kernel == "matmul":
-            return self._rhs_matmul(dtype, keys, plus_idx, minus_idx, Q, c,
-                                    damp), nado
+            rhs = kn.heom_rhs_coupling_factory(*args, dtype=dtype, device=dev)
+        elif kernel == "levels":
+            rhs = kn.heom_rhs_levels_xla_factory(*args, dtype=dtype,
+                                                 device=dev)
+        elif kernel == "rowcol":
+            rhs = kn.heom_rhs_rowcol_factory(*args, dtype=dtype, device=dev)
+        elif kernel == "matmul":
+            rhs = self._rhs_matmul(dtype, keys, plus_idx, minus_idx, Q, c,
+                                   kn.damp_tensor(keys @ nu, dtype, dev))
+        else:
+            rhs = self._rhs_einsum(dtype, keys, plus_idx, minus_idx, Q, c,
+                                   kn.damp_tensor(keys @ nu, dtype, dev))
+        if edip is None:
+            return rhs, nado
+        V = self.n * self.n
+        Cmu = kn.to_tensor(kn.drive_superop(_numpy(edip)), dtype, dev)
 
-        # einsum: one gather over [plus; minus] neighbours with complex
-        # left/right weights
+        def rhs_driven(ados, E):
+            # reshape copies where a kernel's output is not contiguous
+            # (rowcol), so the drive goes into the tensor returned
+            out = rhs(ados).reshape(nado, V)
+            out.addmm_(ados.reshape(nado, V), Cmu, alpha=E)
+            return out.reshape(ados.shape)
+
+        return rhs_driven, nado
+
+    def _rhs_einsum(self, dtype, keys, plus_idx, minus_idx, Q, c, damp):
+        """One gather over [plus; minus] neighbours with complex left/right
+        weights."""
+        H = self._H_np
+        dev = self.device
+        nado = keys.shape[0]
         n = self.n
         npdt = numpy_dtype_of(dtype)
         all_idx = torch.as_tensor(
@@ -228,7 +253,7 @@ class HEOMSolver:
                               - torch.einsum("Nkab, kbc -> Nac", wr * g, Q2))
             return out
 
-        return rhs, nado
+        return rhs
 
     def _rhs_matmul(self, dtype, keys, plus_idx, minus_idx, Q, c, damp):
         """Stacked-superoperator RHS (:func:`kernels.heom_rhs_dot`) on the
@@ -258,36 +283,54 @@ class HEOMSolver:
     # ------------------------------------------------------------ run
     def run(self, rho0, dt, nt, e_ops=None, nout=1, method="rk4",
             store_ados=False, mesh=None, kernel=None, checkpoint=None,
-            resume=None, edip=None, pulse=None) -> Result:
+            checkpoint_every=10, resume=None, edip=None, pulse=None,
+            t0=0.0) -> Result:
         """Propagate the hierarchy for ``nt`` steps of ``dt`` from
         ``rho0`` in the root ADO, recording ``e_ops`` and the root ADO (or
         every ADO, ``store_ados=True``) after each window of ``nout``
-        steps. ``method`` is 'rk4' or 'euler'. Driven, sharded and
-        checkpointed runs are not yet ported and raise."""
-        for name, val in (("mesh", mesh), ("checkpoint", checkpoint),
-                          ("resume", resume), ("edip", edip),
-                          ("pulse", pulse)):
-            if val is not None:
-                raise not_yet_ported(f"HEOMSolver.run({name}=...)")
+        steps. ``method`` is 'rk4' or 'euler'.
+
+        ``edip``/``pulse`` drive the system: H(t) = H + E(t) μ with
+        E(t) = ``pulse(t)``, any callable of a float that returns a float
+        (evaluated on the host, at t0 + (window·nout + i)·dt and the RK4
+        stage times, as the JAX package computes them from the step
+        index). ``checkpoint`` (a path) saves the ADO stack every
+        ``checkpoint_every`` windows and at the end, in the JAX package's
+        npz format; ``resume`` (such a path) starts from the saved window,
+        so a run resumed from it returns the rows from there on, with
+        ``times`` counted from that window and not from ``t0``, as in the
+        JAX package. Sharded runs (``mesh``) are not yet ported and
+        raise."""
+        if mesh is not None:
+            raise not_yet_ported("HEOMSolver.run(mesh=...)")
+        if edip is not None and pulse is None:
+            raise ValueError("edip given without pulse")
         if e_ops is None:
             e_ops = self.e_ops or []
         dev = self.device
         rho0 = (rho0.to(dev) if isinstance(rho0, torch.Tensor)
                 else torch.as_tensor(np.asarray(rho0), device=dev))
         dtype = complex_dtype_for(rho0, self.H)
-        rhs, nado = self.rhs_fn(dtype, kernel=kernel)
+        rhs, nado = self.rhs_fn(dtype, kernel=kernel, edip=edip)
         n = self.n
 
+        if edip is None:
+            def f(y, t):
+                return rhs(y)
+        else:
+            def f(y, t):
+                return rhs(y, float(pulse(t)))
+
         if method == "rk4":
-            def step(y):
-                k1 = rhs(y)
-                k2 = rhs(y + k1 * (dt / 2))
-                k3 = rhs(y + k2 * (dt / 2))
-                k4 = rhs(y + k3 * dt)
+            def step(y, t):
+                k1 = f(y, t)
+                k2 = f(y + k1 * (dt / 2), t + dt / 2)
+                k3 = f(y + k2 * (dt / 2), t + dt / 2)
+                k4 = f(y + k3 * dt, t + dt)
                 return y + (dt / 6) * (k1 + 2 * k2 + 2 * k3 + k4)
         elif method == "euler":
-            def step(y):
-                return y + dt * rhs(y)
+            def step(y, t):
+                return y + dt * f(y, t)
         else:
             raise ValueError(method)
 
@@ -298,66 +341,257 @@ class HEOMSolver:
             # tr(E rho) = sum_ij E_ij rho_ji
             return torch.einsum("kij, ji -> k", eops, ados[0])
 
+        start = 0
+        if resume is not None:
+            start, leaves, _ = load_checkpoint(resume)
+            ados0 = leaves[0].to(dev, dtype)
+        else:
+            ados0 = torch.zeros((nado, n, n), dtype=dtype, device=dev)
+            ados0[0] = rho0.to(dtype)
         nwin = nt // nout
-        ados0 = torch.zeros((nado, n, n), dtype=dtype, device=dev)
-        ados0[0] = rho0.to(dtype)
+        every = max(1, int(checkpoint_every))
+        nrows = nwin - start + 1
         state_shape = (nado, n, n) if store_ados else (n, n)
-        states = torch.empty((nwin + 1,) + state_shape, dtype=dtype,
-                             device=dev)
+        states = torch.empty((nrows,) + state_shape, dtype=dtype, device=dev)
         states[0] = ados0 if store_ados else ados0[0]
-        obs = (torch.empty((nwin + 1, len(e_ops)), dtype=dtype, device=dev)
+        obs = (torch.empty((nrows, len(e_ops)), dtype=dtype, device=dev)
                if e_ops else None)
         if obs is not None:
             obs[0] = obs_of(ados0)
 
         y = ados0
-        for w in range(1, nwin + 1):
-            for _ in range(nout):
-                y = step(y)
-            states[w] = y if store_ados else y[0]
+        for w in range(start, nwin):
+            for i in range(nout):
+                y = step(y, t0 + (w * nout + i) * dt)
+            row = w + 1 - start
+            states[row] = y if store_ados else y[0]
             if obs is not None:
-                obs[w] = obs_of(y)
+                obs[row] = obs_of(y)
+            if checkpoint is not None and (row % every == 0
+                                           or w + 1 == nwin):
+                save_checkpoint(checkpoint, w + 1, [y], dt=dt, nout=nout)
 
-        times = (torch.arange(nwin + 1, dtype=torch.float64, device=dev)
-                 * dt * nout)
+        times = (torch.arange(start, nwin + 1, dtype=torch.float64,
+                              device=dev) * dt * nout)
         return Result(times=times, observables=obs, states=states,
                       rho0=rho0, rho=y[0], ado=y, dt=dt, nt=nt, nout=nout)
 
-    # ------------------------------------------- not yet ported (raise)
-    def correlation_3op_1t(self, *args, **kwargs):
-        raise not_yet_ported("HEOMSolver.correlation_3op_1t")
+    # ------------------------------------------------- correlation funcs
+    def correlation_3op_1t(self, rho0, oplist, dt, nt, **kwargs):
+        """<A B(t) C> by propagating C ρ0 A through the hierarchy
+        (``kwargs`` go to :meth:`run`). Returns (nt // nout + 1,)."""
+        dtype = complex_dtype_for(rho0, *oplist, self.H)
+        rho0, a_op, b_op, c_op = [torch.as_tensor(_numpy(o)).to(
+            self.device, dtype) for o in (rho0, *oplist)]
+        res = self.run(c_op @ rho0 @ a_op, dt, nt, e_ops=[b_op], **kwargs)
+        return res.observables[:, 0]
 
-    def correlation_2op_1t(self, *args, **kwargs):
-        raise not_yet_ported("HEOMSolver.correlation_2op_1t")
+    def correlation_2op_1t(self, rho0, a_op, b_op, dt, nt, ados0=None,
+                           **kwargs):
+        """<A(t) B> through the full hierarchy (reference convention,
+        pyqed/oqs.py:1193). Pass ``ados0=steady_state(full=True)`` for the
+        exact equilibrium correlator: seeding only the ρ0 slice lets the
+        higher ADOs re-equilibrate. Returns (nt+1,) at t = 0..nt dt."""
+        eye = np.eye(self.n)
+        if ados0 is None:
+            return self.correlation_3op_1t(rho0, [eye, a_op, b_op], dt, nt,
+                                           **kwargs)
+        return self.correlation_3op_2t(rho0, [eye, a_op, b_op], dt=dt,
+                                       nt=1, ntau=nt + 1, ados0=ados0,
+                                       **kwargs)[0]
 
-    def correlation_3op_2t(self, *args, **kwargs):
-        raise not_yet_ported("HEOMSolver.correlation_3op_2t")
+    def liouvillian_dense(self, dtype=None, kernel="einsum"):
+        """The full hierarchy Liouvillian as a dense (D, D) tensor, D =
+        nado·n², column j the (linear) right-hand side of the j-th basis
+        stack: D calls of it. Small hierarchies only."""
+        dtype = dtype or torch.complex128
+        rhs, nado = self.rhs_fn(dtype, kernel=kernel)
+        n = self.n
+        D = nado * n * n
+        L = torch.empty((D, D), dtype=dtype, device=self.device)
+        e = torch.zeros(D, dtype=dtype, device=self.device)
+        for j in range(D):
+            e[j] = 1
+            L[:, j] = rhs(e.view(nado, n, n)).reshape(D)
+            e[j] = 0
+        return L
 
-    def liouvillian_dense(self, *args, **kwargs):
-        raise not_yet_ported("HEOMSolver.liouvillian_dense")
+    def steady_state(self, kernel="einsum", full=False):
+        """Exact HEOM steady state: the null vector of the dense hierarchy
+        Liouvillian (host SVD), normalised by the trace of its ρ0 slice.
+        Returns the Hermitian part of ρ0 (n, n), or with ``full=True`` the
+        whole stationary (nado, n, n) stack, on the solver's device. Warns
+        when the null space is degenerate. Small hierarchies only."""
+        L = self.liouvillian_dense(kernel=kernel).cpu().numpy()
+        _, s, Vh = np.linalg.svd(L)
+        if s[-2] < 1e-10 * max(s[0], 1.0):
+            warnings.warn(
+                "HEOM stationary space is degenerate (e.g. pure "
+                "dephasing: [H, Q] = 0 conserves every population); "
+                "steady_state returns an arbitrary member.")
+        n = self.n
+        ados = Vh[-1].conj().reshape(-1, n, n)
+        ados = ados / np.trace(ados[0])
+        if not full:
+            ados = (ados[0] + ados[0].conj().T) / 2
+        return torch.as_tensor(ados, device=self.device)
 
-    def steady_state(self, *args, **kwargs):
-        raise not_yet_ported("HEOMSolver.steady_state")
+    def propagator(self, dt, nt, kernel="einsum"):
+        """Exact hierarchy propagators U(k dt) = e^{L k dt}, k = 0..nt, from
+        one eig of the dense L on the device. Returns (nt+1, D, D), D =
+        nado·n², to apply to a flattened ADO stack. Small hierarchies
+        only."""
+        L = self.liouvillian_dense(kernel=kernel)
+        w, V = torch.linalg.eig(L)
+        Vinv = torch.linalg.inv(V)
+        ks = torch.arange(nt + 1, dtype=torch.float64, device=L.device)
+        phases = torch.exp(w[None, :] * (ks[:, None] * dt))
+        return (V[None] * phases[:, None, :]) @ Vinv
 
-    def propagator(self, *args, **kwargs):
-        raise not_yet_ported("HEOMSolver.propagator")
+    def correlation_3op_2t(self, rho0, oplist, dt, nt, ntau, ados0=None,
+                           **kwargs):
+        """Two-time correlator <A(t) B(t+tau) C(t)> with both legs
+        propagated by the hierarchy (RK4, ``kwargs['kernel']`` picks the
+        right-hand side). ``ados0`` (nado, n, n) seeds the whole hierarchy
+        (``steady_state(full=True)`` for exact equilibrium correlators),
+        else ρ0 seeds its root. Returns (nt, ntau) complex128."""
+        dtype = torch.complex128
+        dev = self.device
+        rhs, nado = self.rhs_fn(dtype, kernel=kwargs.get("kernel"))
+        n = self.n
+        a_op, b_op, c_op = [torch.as_tensor(_numpy(o)).to(dev, dtype)
+                            for o in oplist]
+        if ados0 is not None:
+            y = torch.as_tensor(_numpy(ados0)).to(dev, dtype)
+        else:
+            y = torch.zeros((nado, n, n), dtype=dtype, device=dev)
+            y[0] = torch.as_tensor(_numpy(rho0)).to(dev, dtype)
+        step = rk4_step(rhs)
+        corr = torch.empty((nt, ntau), dtype=dtype, device=dev)
+        for i in range(nt):
+            if i:
+                y = step(y, 0.0, dt)
+            z = c_op @ y @ a_op
+            for k in range(ntau):
+                if k:
+                    z = step(z, 0.0, dt)
+                corr[i, k] = torch.trace(b_op @ z[0])
+        return corr
 
-    def absorption(self, *args, **kwargs):
-        raise not_yet_ported("HEOMSolver.absorption")
+    def absorption(self, omegas, edip, dt=None, ntau=2000, kernel=None):
+        """Linear absorption from the hierarchy, S(w) = 2 Re int_0^T dt
+        e^{iwt} <mu(t) mu>_eq in the exact correlated equilibrium
+        (``steady_state(full=True)``), with a soft window against
+        truncation ringing. Without ``dt`` the step is the JAX package's:
+        2π / (40 max|ω|), capped at 1.5 / (lmax max|Re ν| + 2 ‖H‖₂) for
+        RK4 stability. Returns a (len(omegas),) real NumPy array."""
+        ados_ss = self.steady_state(full=True)
+        if dt is None:
+            wmax = float(np.max(np.abs(np.asarray(omegas))))
+            dt = 2.0 * np.pi / (wmax * 40.0) if wmax > 0 else 0.01
+            numax = max((abs(complex(m[2]).real) for m in self._modes),
+                        default=0.0)
+            lam = self.lmax * numax + 2.0 * float(
+                np.linalg.norm(self._H_np, ord=2))
+            if lam > 0:
+                dt = min(dt, 1.5 / lam)
+        mu = np.asarray(_numpy(edip), dtype=complex)
+        corr = self.correlation_2op_1t(None, mu, mu, dt=dt, nt=ntau - 1,
+                                       ados0=ados_ss, kernel=kernel)
+        corr = corr.cpu().numpy()
+        t = np.arange(ntau) * dt
+        w = np.asarray(omegas, dtype=float)
+        win = np.exp(-(t / t[-1]) ** 2 * 4.0)
+        ph = np.exp(1j * np.outer(w, t))
+        return 2.0 * np.real(ph @ (corr * win)) * dt
 
 
 class HEOMSolverDrude(HEOMSolver):
-    """High-temperature Drude HEOM with the pyqed reference's signature
-    (``pyqed_tpu.open.heom.HEOMSolverDrude``): not yet ported."""
+    """High-temperature Drude HEOM with the reference's constructor/run
+    signature (reference: pyqed/oqs.py:1332,1361).
 
-    def __init__(self, *args, **kwargs):
-        raise not_yet_ported("HEOMSolverDrude")
+    ``run(rho0, dt, nt, temperature, cutoff, reorganization, nado)`` uses
+    one exponential with the reference's high-T coefficient D0 =
+    reorg·cutoff·(coth(cutoff/(2T)) − i) (pyqed/oqs.py:1843) and a
+    terminator at level nado − 2; ``method='euler-seq'`` is the
+    reference's own stepping (pyqed/oqs.py:1856-1873): sequential in-place
+    Euler over the chain of i^n-rescaled ADOs, level k reading the level
+    k − 1 already updated in the same step and the old level k + 1.
+    """
+
+    def __init__(self, H=None, c_ops=None, e_ops=None, device=None):
+        super().__init__(H, bath=None, c_ops=c_ops, e_ops=e_ops,
+                         device=device)
+
+    def run(self, rho0, dt, nt, temperature, cutoff, reorganization, nado,
+            method="rk4", e_ops=None, **kwargs):
+        gamma = cutoff
+        T = temperature
+        D0 = reorganization * gamma * (1.0 / np.tanh(gamma / (2.0 * T)) - 1j)
+        Q = self.c_ops[0]
+        if method == "euler-seq":
+            return self._run_reference_euler(rho0, dt, nt, D0, gamma, Q,
+                                             nado, e_ops=e_ops)
+        self.lmax = nado - 2
+        self.set_bath([(Q, [D0], [gamma])])
+        return super().run(rho0, dt, nt, method=method, e_ops=e_ops,
+                           **kwargs)
+
+    def _run_reference_euler(self, rho0, dt, nt, D0, gamma, Q, nado,
+                             e_ops=None):
+        """The sequential in-place Euler of the reference over a chain of
+        ``nado`` ADOs (the last one a zero terminator); observables on the
+        root after every step."""
+        e_ops = e_ops or []
+        dev = self.device
+        rho0 = (rho0 if isinstance(rho0, torch.Tensor)
+                else torch.as_tensor(np.asarray(rho0)))
+        dtype = (torch.complex128 if rho0.dtype in (torch.complex128,
+                                                    torch.float64)
+                 else torch.complex64)
+        H = self.H.to(dev, dtype)
+        Q = torch.as_tensor(_numpy(Q)).to(dev, dtype)
+        n = self.n
+        a = [torch.zeros((n, n), dtype=dtype, device=dev)
+             for _ in range(nado)]
+        a[0] = rho0.to(dev, dtype)
+        eops = (torch.stack([torch.as_tensor(_numpy(e)).to(dev, dtype)
+                             for e in e_ops]) if e_ops else None)
+        obs = (torch.empty((nt + 1, len(e_ops)), dtype=dtype, device=dev)
+               if e_ops else None)
+        if obs is not None:
+            obs[0] = torch.einsum("kij, ji -> k", eops, a[0])
+        dr, di = D0.real, D0.imag
+
+        def comm(x, y):
+            return x @ y - y @ x
+
+        for s in range(nt):
+            a[0] = a[0] - 1j * comm(H, a[0]) * dt - comm(Q, a[1]) * dt
+            for k in range(1, nado - 1):
+                up = comm(Q, a[k + 1])
+                down = (dr * comm(Q, a[k - 1])
+                        + 1j * di * (Q @ a[k - 1] + a[k - 1] @ Q))
+                a[k] = a[k] + (-1j * comm(H, a[k]) - up - k * gamma * a[k]
+                               + k * down) * dt
+            if obs is not None:
+                obs[s + 1] = torch.einsum("kij, ji -> k", eops, a[0])
+        ados = torch.stack(a)
+        return Result(times=torch.arange(nt + 1, dtype=torch.float64,
+                                         device=dev) * dt,
+                      observables=obs, rho=ados[0], ado=ados, dt=dt, nt=nt)
 
 
-def solver_from_reference(H, modes, lmax, *, device, kernel=None):
+def solver_from_reference(H, modes, lmax, *, device, kernel=None,
+                          c_ops=None):
     """A port solver on the same operators as a JAX ``HEOMSolver``: its
     host Hamiltonian (``_H_np``), its flattened ``_modes`` list of
-    (Q, c, nu) and its ``lmax``."""
+    (Q, c, nu) and its ``lmax``. A JAX ``HEOMSolverDrude`` builds its bath
+    in run(): pass its ``c_ops`` with ``modes=None`` for the port's
+    :class:`HEOMSolverDrude`."""
+    if modes is None:
+        return HEOMSolverDrude(np.asarray(H), c_ops=[_numpy(q) for q in c_ops],
+                               device=device)
     return HEOMSolver(np.asarray(H),
                       bath=[(np.asarray(Q), c, nu) for Q, c, nu in modes],
                       lmax=lmax, kernel=kernel, device=device)

@@ -585,6 +585,14 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
 heom_coupling.launches = 0
 
 
+def drive_superop(edip):
+    """(−i(left(μ) − right(μ)))ᵀ, the row-convention superoperator of
+    −i[μ, ·] (NumPy): vec(ρ) @ it = vec(−i[μ, ρ])."""
+    mu = np.asarray(edip)
+    eye = np.eye(mu.shape[-1])
+    return (-1j * (np.kron(mu, eye) - np.kron(eye, mu.T))).T.copy()
+
+
 def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
                               dtype=torch.complex128, device="cpu"):
     """HEOM RHS through :func:`heom_coupling` (kernel name ``cuda``; the

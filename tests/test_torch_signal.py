@@ -436,6 +436,18 @@ def test_etpa_matches_jax(refs, biphoton_jta):
     assert rel_err(out, refs["sos/_etpa"]) <= RTOL
 
 
+def test_etpa_with_port_biphoton_matches_jax(refs):
+    """The port's own Biphoton (its joint temporal amplitude from its
+    joint spectral amplitude) drives etpa as the JAX Biphoton does."""
+    epp = pt.Biphoton(0.0, 0.04 / au2ev, Te=10.0 * 41.341, **CPU)
+    p = np.linspace(-0.5, 0.5, 32) / au2ev
+    epp.set_grid(p, p)
+    epp.get_jsa()
+    out = tsos.etpa(OMEGAPS, port_mol(), epp, g_idx=0, e_idx=[1],
+                    f_idx=[2, 3], **CPU)
+    assert rel_err(out, refs["sos/etpa"]) <= RTOL
+
+
 def test_photon_echo_t2series_mesh_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tsos.photon_echo_t2series(port_mol(), W, W, T2S, mesh=object(),
@@ -567,13 +579,41 @@ def test_mol_cars_and_tpa_raise():
 @pytest.mark.parametrize("name", ["run", "evolve", "quantum_dynamics",
                                   "driven_dynamics", "Floquet"])
 def test_mol_dynamics_not_yet_ported(name):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        getattr(port_mol(), name)()
+    """Ported with the driven-dynamics slice: each method hands the
+    molecule to SESolver (or Floquet) on the device asked for and equals
+    that call (their parity with JAX is in tests/test_torch_polariton.py)."""
+    m = port_mol()
+    psi0 = pt.basis(6, 1)
+    pulse = pt.GaussianPulse(omegac=1.0, tau=5.0, tc=10.0, amplitude=0.05)
+    se = SESolver(m.H, device="cpu")
+    kw = dict(dt=0.05, Nt=40)
+    if name == "Floquet":
+        got = m.Floquet(1.0, 0.02, nt=11, device="cpu").quasienergies()
+        ref = pt.floquet.Floquet(m.H, m.edip, 1.0, 0.02, nt=11,
+                                 device="cpu").quasienergies()
+    else:
+        got = {"run": lambda: m.run(psi0, device="cpu", **kw),
+               "evolve": lambda: m.evolve(psi0, pulse=pulse, device="cpu",
+                                          **kw),
+               "quantum_dynamics": lambda: m.quantum_dynamics(
+                   psi0, device="cpu", **kw),
+               "driven_dynamics": lambda: m.driven_dynamics(
+                   psi0, pulse, device="cpu", **kw)}[name]().states
+        driven = name in ("evolve", "driven_dynamics")
+        ref = se.run(psi0=psi0, pulse=pulse if driven else None,
+                     edip=m.edip if driven else None, **kw).states
+    assert torch.equal(got, ref)
 
 
 def test_sesolver_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SESolver(np.eye(2))
+    """Ported with the driven-dynamics slice: a Rabi oscillation on the
+    CPU against sin^2(Omega t / 2)."""
+    _, sx, _, _ = pt.pauli()
+    res = SESolver(0.1 * sx, device="cpu").run(
+        psi0=pt.basis(2, 0), dt=0.01, Nt=2000,
+        e_ops=[pt.ket2dm(pt.basis(2, 1))])
+    p1 = res.observables[:, 0].real.numpy()
+    assert np.max(np.abs(p1 - np.sin(0.1 * res.times.numpy()) ** 2)) < 1e-8
 
 
 def test_signal_device_none_without_card_raises():
