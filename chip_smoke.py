@@ -84,6 +84,27 @@ nonzero:
      scan as one batched RK4 for 20,000 steps (its columns against those
      runs at step 2000 <= 1e-12), Floquet quasienergies at 8 frequencies
      (card vs CPU <= 1e-10);
+   - LDR (bench.py's flagship method; no hand-written kernel lies on it,
+     so every launch count stays 0 outside LDRN.heom): bench.py's
+     _ldr_model at level 5 (31^2 grid x 2 states, n = 1,922),
+     run(method='dense') against run(method='factored') over 400 steps
+     (<= 1e-10), both over 30 steps against a NumPy complex128 copy of
+     bench.py's _ldr_f64_truth (<= 1e-8, the project gate), the first
+     window against the CPU (<= 1e-10), run_imag against the CPU; level 6
+     (n = 7,938) through the row-blocked build, 200 dense steps against
+     the factored path (<= 1e-10); level 7 (n = 32,258) factored only,
+     400 steps (norm); run_lvn at level 4, NonadiabaticRate on a 1-D
+     Eckart LDR (card vs CPU <= 1e-10) and LDRN.heom on a 1-D level-4
+     LDR (n = 30) through the coupling kernel (launch count 4 x nt,
+     against kernel='einsum' <= 1e-10); with run() steps/s, build
+     seconds, device time per step by kernel and peak memory per level
+     (the level-6 dense step against its HBM bound);
+   - open/ through OQS: OQS.lindblad on config #2's dimer (launch count
+     4 x Nt, equal to LindbladSolver), OQS.heom on a spin-boson at lmax 4
+     (launch count 4 x nt, against kernel='einsum'), OQS.tcl2 card vs
+     CPU, mcsolve with 2,000 trajectories card vs CPU on the same draws
+     (<= 1e-10) and against LindbladSolver within 5 standard errors,
+     correlation_4p_2t and NRG energies card vs CPU (<= 1e-10);
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -104,7 +125,8 @@ nonzero:
    steps/s at config #5.
 
 The line before the last is a JSON summary of the kernels, with the
-2DES, DEOM, driven-HEOM and polariton gates and times under "slices";
+2DES, DEOM, driven-HEOM, polariton, LDR and open gates and times under
+"slices";
 the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
 printing any result.
@@ -2056,6 +2078,456 @@ def phase_2des_timing(card):
     return out
 
 
+# ------------------------------------------------------------ LDR slice
+LDR_DT = 0.01                 # bench.py's bench_ldr_tpu
+LDR_NT = 400
+LDR_NOUT = 20
+LDR_TRUTH_NT = 30             # bench.py's _ldr_factored_parity
+LDR6_NT = 200
+LDR_LEVELS = (5, 6, 7)        # 31^2, 63^2, 127^2 grids x 2 states
+LDR_HEOM_NT = 200
+LDR_TIME_NT = 2000            # the long run of the steps/s difference
+LDR_PROF_NT = 40              # the run() profiled and timed by events
+
+
+def ldr_model(level, device):
+    """bench.py:840-859 (_ldr_model) on the port: a 2-D two-state
+    avoided-crossing model (harmonic surface pair, a mixing angle
+    0.3 exp(-(X^2 + Y^2)) as the overlap factor S), on a (2^level - 1)^2
+    sine-DVR grid over [-4, 4]^2; psi0 a Gaussian on state 0 with unit
+    2-norm."""
+    from pyqed_tpu_torch.grid.ldr import LDRN
+    sol = LDRN([(-4.0, 4.0), (-4.0, 4.0)], [level, level], nstates=2,
+               device=device)
+    X, Y = np.meshgrid(sol.x[0], sol.x[1], indexing="ij")
+    apes = np.stack([0.5 * (X ** 2 + Y ** 2),
+                     0.5 * (X ** 2 + Y ** 2) + 1.0], axis=-1)
+    th = 0.3 * np.exp(-(X ** 2 + Y ** 2)).reshape(sol.ntot)
+    S = np.zeros((sol.ntot, 2, 2))
+    S[:, 0, 0] = np.cos(th)
+    S[:, 1, 1] = np.cos(th)
+    S[:, 0, 1] = -np.sin(th)
+    S[:, 1, 0] = np.sin(th)
+    psi0 = (np.exp(-(X ** 2 + Y ** 2))[..., None]
+            * np.array([1.0, 0.0])).astype(complex)
+    psi0 /= np.linalg.norm(psi0)
+    sol.apes = apes
+    return sol, S.reshape(*sol.nx, 2, 2), psi0
+
+
+def ldr_f64_truth(level, nsteps, dt):
+    """bench.py:1042-1088 (_ldr_f64_truth) in NumPy complex128: the dense
+    A ⊙ (expKx ⊗ expKy) from the sine DVR's analytic FBR spectrum, nsteps
+    of expV · (A ⊙ K) after the leading half-step, the state LDRN.run
+    stores."""
+    sol, S, psi0 = ldr_model(level, "cpu")
+    ns, ntot = sol.nstates, sol.ntot
+    n = ntot * ns
+    S = S.reshape(ntot, 2, ns)
+    expKs = []
+    for dvr in sol.dvr:
+        nn = np.asarray(dvr.n, dtype=np.float64)
+        U = (np.sin(np.outer(nn, nn) * np.pi / (dvr.npts + 1))
+             * np.sqrt(2.0 / (dvr.npts + 1)))
+        ph = np.exp(-1j * dt / (2 * dvr.mass) * nn ** 2
+                    * np.pi ** 2 / dvr.L ** 2)
+        expKs.append(U.T @ (ph[:, None] * U))
+    K = np.kron(expKs[0], expKs[1])
+    A = np.einsum("mca, ncb -> manb", S, S)
+    kin = (A * K[:, None, :, None]).reshape(n, n)
+    apes = sol.apes.numpy()
+    expVh = np.exp(-1j * (dt / 2) * apes).reshape(n)
+    p = expVh * psi0.reshape(n)
+    for _ in range(nsteps):
+        p = expVh * expVh * (kin @ p)
+    return p
+
+
+def ldr_runs_per_s(sol, psi0, method, nt):
+    """run() steps/s from the difference of an nt-step and a one-window
+    run, so the setup of run() cancels."""
+    walls = []
+    for steps in (LDR_NOUT, nt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol.run(psi0, LDR_DT, steps, nout=LDR_NOUT, method=method)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (nt - LDR_NOUT) / (walls[1] - walls[0])
+
+
+def ldr_record(card, level, sol, psi0, method, build_s, base, out):
+    """Steps/s, device time per step by kernel and peak memory (above
+    ``base``, the memory allocated when the level began) of one level and
+    method, into ``out``."""
+    rates = [ldr_runs_per_s(sol, psi0, method, LDR_TIME_NT)
+             for _ in range(2)]
+
+    def advance():
+        sol.run(psi0, LDR_DT, LDR_PROF_NT, nout=LDR_PROF_NT, method=method)
+
+    advance()
+    # the device time of one run() of LDR_PROF_NT steps, its set-up
+    # included, per step (the profiler can drop events: rows then count
+    # fewer kernels per step than the step runs)
+    total, rows = profile_steps(advance, 1, per=LDR_PROF_NT)
+    # CUDA events over 20 such runs: the device time of a device-bound
+    # step, the host's enqueue of a host-bound one
+    ev_us = event_ms(advance, (), iters=20, warmup=2) * 1e3 / LDR_PROF_NT
+    n = sol.ntot * sol.nstates
+    key = f"level{level}_{method}"
+    out[key] = {"n": n, "steps_per_s": max(rates),
+                "step_device_us": total, "step_event_us": ev_us,
+                "build_s": build_s,
+                "busy": total / 1e6 * max(rates),
+                "max_memory_gb":
+                    (torch.cuda.max_memory_allocated() - base) / 1e9}
+    log(f"[ldr] level {level} (n = {n}) {method}: run() "
+        + ", ".join(f"{r:.0f}" for r in rates) + f" steps/s, build "
+        f"{build_s:.3f} s, peak memory {out[key]['max_memory_gb']:.2f} GB "
+        "above the level's start "
+        f"({card})")
+    print_profile(f"profile LDR level {level} {method} step (busy share "
+                  f"{out[key]['busy']:.2f})", total, rows, n=5)
+    log(f"[ldr] level {level} {method} step: {ev_us / 1e3:.4f} ms per step "
+        f"by CUDA events over 20 run() calls of {LDR_PROF_NT} steps "
+        f"({card})")
+    if method == "dense":
+        b_ms, b_by = bound_ms(16.0 * n * n + 48.0 * n, 8.0 * n * n)
+        out[key]["bound_ms"] = b_ms
+        log(f"[ldr] level {level} dense step: {ev_us / 1e3:.4f} ms by CUDA "
+            f"events, {total / 1e3:.4f} ms of profiled device time, against "
+            f"its {b_ms:.4f} ms bound ({b_by}: the (n, n) complex128 matrix "
+            "read once)")
+
+
+def gate(tag, label, val, tol):
+    """Log ``val`` against ``tol`` under ``[tag]``; raise above it."""
+    log(f"[{tag}] {label}: {val:.3e} (tol {tol:g})")
+    if not val <= tol:
+        raise AssertionError(f"{tag} {label}: {val:.3e} > {tol:g}")
+    return val
+
+
+def phase_ldr(card):
+    """The LDR slice (bench.py's flagship method; no hand-written kernel
+    lies on it, every launch count stays 0 until LDRN.heom, read before
+    it): bench.py's model at level 5
+    (31^2 x 2, n = 1,922) dense against factored over 400 steps, both
+    against the NumPy truth over 30 steps (the 1e-8 project gate), the
+    first window against the CPU; level 6 (n = 7,938) through the blocked
+    build, 200 dense steps against the factored path; level 7 (n =
+    32,258) factored only; run_imag (level 5) and run_lvn (level 4)
+    against the CPU, NonadiabaticRate on a 1-D LDR against the CPU, and
+    LDRN.heom through the coupling kernel (launches 4 x nt) against
+    kernel='einsum'; with steps/s, build seconds, device time per step
+    and peak memory per level."""
+    l5, l6, l7 = LDR_LEVELS
+    out = {"gates": {}, "timing": {}}
+    gates, timing = out["gates"], out["timing"]
+    reset_counts()
+    # level 5: dense against factored, the truth, the CPU
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sol, S, psi0 = ldr_model(l5, DEVICE)
+    sol.build_ovlp(S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol.short_time_propagator(LDR_DT)
+    torch.cuda.synchronize()
+    build5 = time.perf_counter() - t0
+    rd = sol.run(psi0, LDR_DT, LDR_NT, nout=LDR_NOUT, method="dense")
+    rf = sol.run(psi0, LDR_DT, LDR_NT, nout=LDR_NOUT, method="factored")
+    gates["l5_dense_vs_factored"] = gate("ldr",
+        f"level {l5} dense vs factored, {LDR_NT} steps", rel(rd.states,
+                                                           rf.states), 1e-10)
+    truth = torch.as_tensor(ldr_f64_truth(l5, LDR_TRUTH_NT, LDR_DT))
+    for method in ("dense", "factored"):
+        r = sol.run(psi0, LDR_DT, LDR_TRUTH_NT, nout=LDR_TRUTH_NT,
+                    method=method)
+        gates[f"l5_{method}_vs_truth"] = gate("ldr",
+            f"level {l5} {method} vs NumPy truth, {LDR_TRUTH_NT} steps",
+            rel(r.psi.reshape(-1).cpu(), truth), 1e-8)
+    cpu, _, _ = ldr_model(l5, "cpu")
+    cpu.build_ovlp(S)
+    rc = cpu.run(psi0, LDR_DT, LDR_NOUT, nout=LDR_NOUT, method="dense")
+    gates["l5_first_window_vs_cpu"] = gate("ldr",
+        f"level {l5} first window, card vs CPU",
+        rel(rd.states[0].cpu(), rc.states[0]), 1e-10)
+    norm5 = (rd.psi.abs() ** 2).sum().item()
+    gates["l5_norm"] = norm5
+    log(f"[ldr] level {l5} norm after {LDR_NT} dense steps {norm5:.15f}")
+    ldr_record(card, l5, sol, psi0, "dense", build5, base, timing)
+    ldr_record(card, l5, sol, psi0, "factored", 0.0, base, timing)
+    # imaginary time at level 5, card against CPU
+    ri = sol.run_imag(psi0, LDR_DT, 100, nout=20)
+    ci = cpu.run_imag(psi0, LDR_DT, 100, nout=20)
+    gates["l5_imag_vs_cpu"] = gate("ldr",
+        f"level {l5} run_imag card vs CPU (E = {ri.e_tot:.12f})",
+        max(rel(ri.energies.cpu(), ci.energies), rel(ri.psi.cpu(), ci.psi)),
+        1e-10)
+    del sol, cpu, rd, rf, ri, ci
+    # level 6: the blocked build, dense steps against the factored path
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sol, S, psi0 = ldr_model(l6, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol.short_time_propagator_blocked(LDR_DT, S)
+    torch.cuda.synchronize()
+    build6 = time.perf_counter() - t0
+    rd = sol.run(psi0, LDR_DT, LDR6_NT, nout=LDR_NOUT, method="dense")
+    rf = sol.run(psi0, LDR_DT, LDR6_NT, nout=LDR_NOUT, method="factored")
+    gates["l6_dense_vs_factored"] = gate("ldr",
+        f"level {l6} blocked dense vs factored, {LDR6_NT} steps",
+        rel(rd.states, rf.states), 1e-10)
+    gates["l6_norm"] = (rd.psi.abs() ** 2).sum().item()
+    ldr_record(card, l6, sol, psi0, "dense", build6, base, timing)
+    ldr_record(card, l6, sol, psi0, "factored", 0.0, base, timing)
+    del sol, rd, rf
+    # level 7: factored only
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sol, S, psi0 = ldr_model(l7, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol.build_ovlp(S)
+    sol.buildV(LDR_DT)
+    sol.buildK(LDR_DT)
+    torch.cuda.synchronize()
+    build7 = time.perf_counter() - t0
+    r7 = sol.run(psi0, LDR_DT, LDR_NT, nout=LDR_NOUT, method="factored")
+    norm7 = (r7.psi.abs() ** 2).sum().item()
+    if not (finite(r7.states) and abs(norm7 - 1.0) <= 1e-10):
+        raise AssertionError(f"LDR level {l7}: norm {norm7!r}")
+    gates["l7_norm"] = norm7
+    log(f"[ldr] level {l7} (n = {sol.ntot * 2}) norm after {LDR_NT} factored "
+        f"steps {norm7:.15f}")
+    ldr_record(card, l7, sol, psi0, "factored", build7, base, timing)
+    del sol, r7
+    torch.cuda.empty_cache()
+    # Liouville-von Neumann at level 4 (15^2 x 2), card against CPU
+    lv = {}
+    for dev in (DEVICE, "cpu"):
+        s4, S4, p4 = ldr_model(l5 - 1, dev)
+        s4.build_ovlp(S4)
+        v = p4.reshape(-1)
+        lv[dev] = s4.run_lvn(np.outer(v, v.conj()), LDR_DT, 20, nout=10)
+    gates["l4_lvn_vs_cpu"] = gate("ldr",
+        f"level {l5 - 1} run_lvn card vs CPU",
+        rel(lv[DEVICE].states.cpu(), lv["cpu"].states), 1e-10)
+    counts = read_counts()
+    out["launches_outside_heom"] = counts
+    if any(counts.values()):
+        raise AssertionError(f"LDR: kernel launches {counts} outside "
+                             "LDRN.heom, expected none")
+    gates.update(phase_ldr_rate_heom())
+    return out
+
+
+def ldr_1d(device):
+    """A 1-D two-state LDR at level 4 (15 points, n = 30): displaced
+    harmonic surfaces with a mixing angle, for the HEOM check."""
+    from pyqed_tpu_torch.grid.ldr import LDRN
+    sol = LDRN([(-4.0, 4.0)], [4], nstates=2, device=device)
+    x = sol.x[0]
+    sol.apes = np.stack([0.5 * x ** 2, 0.5 * (x - 1.0) ** 2 + 0.3], -1)
+    th = 0.3 * np.tanh(x)
+    sol.build_ovlp(np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                             np.stack([np.sin(th), np.cos(th)], -1)], -2))
+    g = np.exp(-0.5 * (x + 0.5) ** 2)
+    psi = np.stack([g, 0 * g], -1).astype(complex)
+    psi /= np.sqrt((np.abs(psi) ** 2).sum() * sol.dx[0])
+    return sol, psi
+
+
+def ldr_eckart(device):
+    """tests/test_dvr_ldr.py's Eckart barrier 0.003 / cosh^2(2x) (mass
+    1836, level 4) as a two-state LDR: the second surface 0.002 higher, a
+    mixing angle 0.2 tanh(x)."""
+    from pyqed_tpu_torch.grid.ldr import LDRN
+    sol = LDRN([(-3.0, 3.0)], [4], nstates=2, mass=[1836.0], device=device)
+    x = sol.x[0]
+    v = 0.003 / np.cosh(2 * x) ** 2
+    sol.apes = np.stack([v, v + 0.002], -1)
+    th = 0.2 * np.tanh(x)
+    sol.build_ovlp(np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                             np.stack([np.sin(th), np.cos(th)], -1)], -2))
+    return sol
+
+
+def phase_ldr_rate_heom():
+    """NonadiabaticRate on the two-state Eckart LDR and LDRN.heom on the
+    1-D harmonic LDR, card against the CPU and kernel='cuda' against
+    kernel='einsum'."""
+    from pyqed_tpu_torch.grid.rate import NonadiabaticRate
+    from pyqed_tpu_torch.open.bath import DrudeBath
+    gates = {}
+    k, c = {}, {}
+    reset_counts()
+    for dev in (DEVICE, "cpu"):
+        k[dev], _, c[dev] = NonadiabaticRate(ldr_eckart(dev)).rate(
+            1052.0, t_plateau=1500.0)
+    expect_only(read_counts(), "heom_coupling", 0, "NonadiabaticRate")
+    gates["rate_vs_cpu"] = gate("ldr",
+        f"NonadiabaticRate (k = {k[DEVICE]:.12e}) card vs CPU",
+        max(abs(k[DEVICE] - k["cpu"]) / abs(k["cpu"]),
+            float(np.max(np.abs(c[DEVICE] - c["cpu"]))
+                  / np.max(np.abs(c["cpu"])))), 1e-10)
+    sol, psi = ldr_1d(DEVICE)
+    sol.buildH()
+    v = psi.reshape(-1) * np.sqrt(sol.dx[0])
+    rho0 = np.outer(v, v.conj())
+    P = [np.kron(np.eye(sol.ntot), np.diag(np.eye(2)[s])) for s in (0, 1)]
+    runs = {}
+    for kernel in ("cuda", "einsum"):
+        heom = sol.heom(DrudeBath(temperature=0.5, cutoff=0.5, reorg=0.05),
+                        coupling="population", lmax=2, nexp=1)
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[kernel] = heom.run(rho0, dt=0.01, nt=LDR_HEOM_NT, nout=20,
+                                e_ops=P, kernel=kernel)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_only(counts, "heom_coupling",
+                    4 * LDR_HEOM_NT if kernel == "cuda" else 0,
+                    f"LDRN.heom kernel={kernel}")
+        if kernel == "cuda":
+            gates["heom_launches"] = counts["heom_coupling"]
+            log(f"[ldr] LDRN.heom n = 30 (V = 900, {runs[kernel].ado.shape[0]}"
+                f" ADOs) {LDR_HEOM_NT} steps in {wall:.2f} s, launches "
+                f"{counts}")
+    gates["heom_cuda_vs_einsum"] = gate("ldr",
+        "LDRN.heom cuda vs einsum", max_diff(runs["cuda"], runs["einsum"]),
+        1e-10)
+    return gates
+
+
+# ----------------------------------------------------------- open slice
+MC_NTRAJ = 2000
+MC_DT = 0.02
+MC_NT = 2000
+MC_NOUT = 100
+
+
+def spin_boson():
+    """H = sigma_x / 2, Q = sigma_z, a Drude bath at temperature 0.5,
+    cutoff 0.5, reorganisation 0.05 (the DEOM drive of the verify notes),
+    rho0 = |0><0|."""
+    from pyqed_tpu_torch.open.bath import DrudeBath
+    sx = np.array([[0.0, 1.0], [1.0, 0.0]])
+    sz = np.diag([1.0, -1.0])
+    return (0.5 * sx, sz, DrudeBath(temperature=0.5, cutoff=0.5, reorg=0.05),
+            np.diag([1.0, 0.0]).astype(complex))
+
+
+def phase_open(card):
+    """The rest of open/ through the OQS front door, on config #2's dimer
+    (n = 16) and a spin-boson: OQS.lindblad through the commutator kernel
+    (launches 4 x Nt, equal to LindbladSolver called directly), OQS.heom
+    at lmax 4 through the coupling kernel (launches 4 x nt, against
+    kernel='einsum'), OQS.tcl2 card against CPU, 2,000 quantum-jump
+    trajectories card against CPU on the same draws and against
+    LindbladSolver within 5 standard errors, correlation_4p_2t and NRG
+    energies card against CPU."""
+    from pyqed_tpu_torch import LindbladSolver, OQS, mcsolve
+    from pyqed_tpu_torch.open.correlation import correlation_4p_2t
+    from pyqed_tpu_torch.open.nrg import NRG, SBM
+    out = {}
+    H, c, rho0, e_ops = dimer_problem(LB_NVIB)
+    kw = dict(dt=LB_DT, nt=LB_NT, nout=LB_NOUT, e_ops=e_ops)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = OQS(H, c_ops=[c], device=DEVICE).lindblad(rho0, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_only(counts, "liouvillian_commutator", 4 * LB_NT, "OQS.lindblad")
+    out["lindblad_launches"] = counts["liouvillian_commutator"]
+    direct = LindbladSolver(H, [c], e_ops=e_ops, device=DEVICE).run(
+        rho0, LB_DT, LB_NT, nout=LB_NOUT)
+    out["lindblad_vs_direct"] = gate("open",
+        f"OQS.lindblad n = 16, {LB_NT} steps in {wall:.2f} s, launches "
+        f"{counts}; vs LindbladSolver", max_diff(res, direct,
+                                                 ("observables", "rho")),
+        1e-14)
+    Hs, sz, bath, rs0 = spin_boson()
+    sb = OQS(Hs, c_ops=[sz], device=DEVICE)
+    hk = dict(dt=0.01, nt=1000, nout=50, bath=bath, lmax=4,
+              e_ops=[np.diag([1.0, 0.0]), sz])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rh = sb.heom(rs0, **hk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_only(counts, "heom_coupling", 4 * hk["nt"], "OQS.heom")
+    out["heom_launches"] = counts["heom_coupling"]
+    out["heom_vs_einsum"] = gate("open",
+        f"OQS.heom spin-boson lmax 4 ({rh.ado.shape[0]} ADOs), {hk['nt']} "
+        f"steps in {wall:.2f} s, launches {counts}; vs kernel='einsum'",
+        max_diff(rh, sb.heom(rs0, kernel="einsum", **hk)), 1e-10)
+    tk = dict(dt=0.01, nt=2000, e_ops=[sz], bath=bath)
+    rt = sb.tcl2(rs0, **tk)
+    ct = OQS(Hs, c_ops=[sz], device="cpu").tcl2(rs0, **tk)
+    out["tcl2_vs_cpu"] = gate("open",
+        "OQS.tcl2 spin-boson 2000 steps, card vs CPU",
+        max_diff(rt, ct, ("observables", "rho")), 1e-10)
+    # quantum jumps on the dimer from |e=1, v=3> (decaying at once): the
+    # same draws on the card and the CPU; the electronic populations and
+    # the vibrational quantum number
+    n, nvib = H.shape[0], LB_NVIB
+    psi0 = np.eye(n)[nvib + 3].astype(complex)
+    mc_ops = [np.diag((np.arange(n) < nvib).astype(float)),
+              np.diag((np.arange(n) >= nvib).astype(float)),
+              np.diag(np.arange(n) % nvib).astype(float)]
+    mk = dict(c_ops=[c], e_ops=mc_ops, dt=MC_DT, nt=MC_NT, ntraj=MC_NTRAJ,
+              nout=MC_NOUT, key=SEED)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = mcsolve(H, psi0, device=DEVICE, **mk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_only(read_counts(), "heom_coupling", 0, "mcsolve")
+    mcc = mcsolve(H, psi0, device="cpu", **mk)
+    out["mcwf_vs_cpu"] = gate("open",
+        f"mcsolve n = 16, {MC_NTRAJ} trajectories x {MC_NT} steps in "
+        f"{wall:.2f} s ({int(mc.njumps[-1].sum())} jumps), card vs CPU",
+        max_diff(mc, mcc, ("observables", "njumps")), 1e-10)
+    lb = LindbladSolver(H, [c], device=DEVICE).run(
+        np.outer(psi0, psi0.conj()), MC_DT, MC_NT, nout=MC_NOUT,
+        e_ops=mc_ops)
+    z = ((mc.observables - lb.observables[1:]).real.abs()
+         / mc.observables_std.real).max().item()
+    out["mcwf_vs_lindblad_se"] = gate("open",
+        "mcsolve vs LindbladSolver, largest deviation in standard errors", z,
+        5.0)
+    A = np.diag(np.arange(H.shape[0], dtype=float) / H.shape[0])
+    cm = {}
+    for dev in (DEVICE, "cpu"):
+        cm[dev] = correlation_4p_2t(H, rho0, (A, c.T, c, A), c_ops=[c],
+                                    dt=LB_DT, nt1=10, nt2=100, device=dev)
+    out["corr4p2t_vs_cpu"] = gate("open",
+        "correlation_4p_2t (10 x 100) card vs CPU",
+        rel(cm[DEVICE].cpu(), cm["cpu"]), 1e-10)
+    en = {}
+    for dev in (DEVICE, "cpu"):
+        nrg = NRG(SBM(0.1, 0.05).H, device=dev)
+        nrg.run(N=10, nz=8, nkeep=64, alpha=0.1)
+        en[dev] = nrg.energies
+    out["nrg_vs_cpu"] = gate("open",
+        "NRG energies (10 shells, nz 8, nkeep 64) card vs CPU",
+        rel(en[DEVICE].cpu(), en["cpu"]), 1e-10)
+    log(f"[open] walls above on {card}")
+    return out
+
+
 def main():
     card = phase_environment()
     import pyqed_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -2077,7 +2549,8 @@ def main():
               "deom": {"run": phase_deom(), "resolvent": phase_resolvent()},
               "heom_driven": {"run": phase_heom_driven(),
                               "correlations": phase_heom_correlations()},
-              "polariton": phase_polariton()}
+              "polariton": phase_polariton(),
+              "ldr": phase_ldr(card), "open": phase_open(card)}
     times = phase_timing(card, shapes)
     spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0

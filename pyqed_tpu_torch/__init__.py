@@ -28,7 +28,18 @@ Ported so far:
   functions, ``absorption``) and ``HEOMSolverDrude``; laser pulses and
   biphotons (``models/pulse``), ``SESolver`` and the dynamics of ``Mol``,
   the cavity polariton (``models/cavity``) and Floquet theory
-  (``floquet``).
+  (``floquet``);
+- the LDR slice: the DVR family (``grid/dvr``), exact nonadiabatic
+  dynamics in the local diabatic representation (``LDRN``, ``LDR2``,
+  ``LDR2Jacobi``, ``NonHermLDRN``: dense, row-blocked and factored
+  propagation, imaginary time, Liouville-von Neumann, HEOM), flux-side
+  rates (``grid/rate``) and tensor trains (``tn/ttals``); the rest of
+  ``models/named`` (oscillators, spin chains, Frenkel excitons, the
+  displaced oscillator, Franck-Condon factors); and the rest of ``open``:
+  TCL2, quantum jumps (``MCWFSolver``, ``mcsolve``), NRG, the
+  quantum-regression correlations and the ``OQS`` front door. No TPU
+  kernel lies on the LDR path (cuBLAS products); ``OQS.lindblad``,
+  ``OQS.heom`` and ``LDRN.heom`` run the commutator and coupling kernels.
 
 Entry points run on the card (``device=None`` means ``cuda`` and raises
 without one) unless the caller passes ``device="cpu"``. The package
@@ -39,7 +50,9 @@ __version__ = "0.1.0"
 
 from . import units
 from .core.result import Result, load_result
-from .models.named import FMO
+from .models.named import (FMO, Frenkel, Frenkel2, Frenkel2s, Frenkel2_s,
+                           HarmonicOscillator, Morse, TFIM, HeisenbergModel,
+                           DHO, franck_condon, franck_condon_analytic)
 from .models.mol import (Mol, SESolver, mls, tdse, quantum_dynamics,
                          driven_dynamics)
 from .models.pulse import (
@@ -50,15 +63,19 @@ from .models.pulse import (
 from .models.cavity import Cavity, Composite, Polariton, QRM
 from .open.bath import DrudeBath
 from .open.heom import HEOMSolver, HEOMSolverDrude, solver_from_reference
-from .grid import SPO, SPO2, SPO3, SPON, SPO2NH, ResultSPO
+from .grid import SPO, SPO2, SPO3, SPON, SPO2NH, ResultSPO, LDRN
+from .grid import SincDVR, SineDVR, HermiteDVR, ExponentialDVR, ChebDVR
 from .ops.wavepacket import gwp
 from .config import default_complex, default_real
 from .open.lindblad import (LindbladSolver, LiouvilleSolver, Lindblad_solver,
                             driven_dissipative_dynamics, absorption_eseries)
 from .open.redfield import RedfieldSolver, redfield_tensor
 from .open.deom import DEOMSolver, DEOMBath
+from .open.oqs import OQS
+from .open.mcwf import MCWFSolver, mcsolve
 from . import signal
 from . import floquet
+from . import tn
 from .ops.linalg import (
     dag, dagger, commutator, comm, anticommutator, anticomm, tensor,
     tensor_power, ptrace, transform, basis_transform, obs, obs_dm, expect,

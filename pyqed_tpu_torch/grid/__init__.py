@@ -1,2 +1,9 @@
 from .spo import (SPO, SPO2, SPO3, SPON, SPO2NH, ResultSPO, ResultSPO2,
                   spo_from_reference)
+from .dvr import (
+    SincDVR, SineDVR, HermiteDVR, ExponentialDVR, DVRN, DVR2, kinetic,
+    BesselDVR, LaguerreDVR, ChebyshevDVR, LegendreDVR, ChebDVR,
+)
+from .ldr import LDRN, LDR2, ResultLDR, ldr_from_reference
+from .rate import RateFluxSide, flux_operator
+from .ldr import LDR2Jacobi, NonHermLDRN

@@ -1,4 +1,8 @@
-from .named import FMO
+from .named import (
+    HarmonicOscillator, Morse, Frenkel, Frenkel2, Frenkel2s, Frenkel2_s,
+    TFIM, HeisenbergModel,
+    franck_condon, FranckCondon, franck_condon_analytic, DHO, FMO,
+)
 from .mol import Mol, SESolver, mls, tdse
 from .pulse import (
     Pulse, GaussianPulse, ChirpedPulse, Biphoton, intensity_to_field,

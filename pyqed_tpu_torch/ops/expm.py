@@ -12,6 +12,8 @@ pyqed/phys.py — ``expm:2049``, ``propagator:2105``,
 - ``krylov_expm_multiply``: Arnoldi small-subspace action.
 - ``chebyshev_expm_multiply``: Chebyshev series for Hermitian H.
 - ``expm``: e^{A t} for a general A, eigendecomposition on the host.
+- ``expm_pade``: e^{A} for a general A by Padé scaling and squaring on
+  A's device.
 """
 from __future__ import annotations
 
@@ -187,3 +189,53 @@ def expm(A, t, method="eig"):
         return (V * torch.exp(w * t)[None, :]) @ Vinv
     return torch.einsum("ab, tb, bc -> tac", V,
                         torch.exp(t[:, None] * w[None, :]), Vinv)
+
+
+# Padé numerator coefficients b_0..b_m of jax.scipy.linalg.expm (Higham
+# 2005) and the L1-norm bounds choosing m = 3, 5, 7, 9 for complex128.
+_PADE_B = {
+    3: (120., 60., 12., 1.),
+    5: (30240., 15120., 3360., 420., 30., 1.),
+    7: (17297280., 8648640., 1995840., 277200., 25200., 1512., 56., 1.),
+    9: (17643225600., 8821612800., 2075673600., 302702400., 30270240.,
+        2162160., 110880., 3960., 90., 1.),
+    13: (64764752532480000., 32382376266240000., 7771770303897600.,
+         1187353796428800., 129060195264000., 10559470521600.,
+         670442572800., 33522128640., 1323241920., 40840800., 960960.,
+         16380., 182., 1.),
+}
+_PADE_THETA = ((1.495585217958292e-2, 3), (2.539398330063230e-1, 5),
+               (9.504178996162932e-1, 7), (2.097847961257068, 9))
+_PADE_MAXNORM = 5.371920351148152
+
+
+def expm_pade(A):
+    """e^{A} of a general complex128 (n, n) A on A's device by Padé
+    scaling and squaring: the algorithm, orders and thresholds of
+    jax.scipy.linalg.expm, so both packages agree to rounding. One host
+    read (A's L1 norm) picks the order and the number of squarings."""
+    A = as_tensor(A).to(torch.complex128)
+    norm = float(torch.linalg.matrix_norm(A, ord=1))
+    s = max(0, int(np.floor(np.log2(norm / _PADE_MAXNORM)))) if norm else 0
+    A = A / 2.0 ** s
+    m = next((k for theta, k in _PADE_THETA if norm < theta), 13)
+    b = _PADE_B[m]
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    A2 = A @ A
+    if m == 13:
+        A4 = A2 @ A2
+        A6 = A4 @ A2
+        U = A @ (A6 @ (b[13] * A6 + b[11] * A4 + b[9] * A2)
+                 + b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * eye)
+        V = (A6 @ (b[12] * A6 + b[10] * A4 + b[8] * A2)
+             + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye)
+    else:
+        powers = [eye, A2]
+        while len(powers) <= m // 2:
+            powers.append(powers[-1] @ A2)
+        U = A @ sum(b[2 * k + 1] * P for k, P in enumerate(powers))
+        V = sum(b[2 * k] * P for k, P in enumerate(powers))
+    R = torch.linalg.solve(V - U, V + U)
+    for _ in range(s):
+        R = R @ R
+    return R
