@@ -21,7 +21,11 @@ nonzero:
      FMO nexp=2 hierarchy (2,024 ADOs, nj = 42);
    - the SPO phase multiply and potential apply at the 256^3 x 2-state
      chip shape (states-first, the layout of the FFT on the main path)
-     and at a ragged 37 x 41 x 29 x 3-state shape in both layouts;
+     and at a ragged 37 x 41 x 29 x 3-state shape in both layouts, and
+     with 10 states (the generic branch) on the ragged shape and on
+     1,024- and 2^20-point 1-D grids, and with 200 states (rows read
+     from device memory, too long to stage) on 333 points, in both
+     layouts;
    - the Liouvillian commutator at n = 16, 37, 1000 and 1024 (and 2048
      at complex128) on random non-Hermitian H_eff and rho;
 4. main paths, each driven with every launch count set to 0 just before
@@ -105,6 +109,21 @@ nonzero:
      CPU, mcsolve with 2,000 trajectories card vs CPU on the same draws
      (<= 1e-10) and against LindbladSolver within 5 standard errors,
      correlation_4p_2t and NRG energies card vs CPU (<= 1e-10);
+   - nonadiabatic dynamics (``phase_nonadiabatic``): FSSH on Tully I
+     (examples/fssh_tully.py's setup, 20,000 trajectories x 4,000 steps
+     of 2 au) against the exact 512-point SPO wavepacket (through the
+     SPO kernels, launch counts 2 x nt and nt; populations within 0.02),
+     its energy through hops (<= 1e-4), the first 256 trajectories on
+     the CPU with the same draws (x, p, |c|^2 <= 1e-10, active
+     identical), one EDC ensemble; FSSH on Pyrazine's 3 states (the eager
+     batched-eigh step) card vs CPU; Ehrenfest on the same ensemble (energy
+     drift, card vs CPU); NAMD against diabatic SPO at 2,048 points
+     (populations <= 2e-4, norm <= 1e-4, card vs CPU); Pyrazine.spo() on
+     256^2 x 3 (2,000 steps, norm drift <= 1e-10), SpinVibronic.spo() on
+     128^2 x 4, VSC (ncav = 10) and VibronicPolariton (2 x 5) on 1,024
+     points through the generic SPO branch; ShinMetiu2D.pes (31^2, 64
+     positions), LVC and pump-probe (64 delays), card vs CPU <= 1e-10;
+     launch counts 0 outside the SPO runs;
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -124,8 +143,14 @@ nonzero:
    HEOMSolver.run's own step driven and undriven, and SESolver.run()
    steps/s at config #5.
 
-The line before the last is a JSON summary of the kernels, with the
-2DES, DEOM, driven-HEOM, polariton, LDR and open gates and times under
+Timing also covers the generic SPO potential branch at 2^20 x 10,
+1,024 x 10 and 4,096 x 200 against torch.matmul and its bound, and the nonadiabatic
+runs' steps/s, aten ops and device time per step and busy share.
+
+The line before the last is a JSON summary of the kernels (the generic
+SPO branch as ``spo_potential_generic``, timed at the main path's
+1,024 x 10 with its 2^20-point times beside), with the 2DES, DEOM,
+driven-HEOM, polariton, LDR, open and nonadiabatic gates and times under
 "slices";
 the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
@@ -401,8 +426,11 @@ def phase_spo_parity():
     full = (SPO_N,) * 3
     for kind, (wrap, ref) in SPO_FNS.items():
         for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64, 1e-5)):
-            cases = [(full, SPO_NS, True)] + [(RAGGED, 3, sf)
-                                              for sf in (False, True)]
+            cases = ([(full, SPO_NS, True)]
+                     + [(shape, ns, sf) for shape, ns in
+                        ((RAGGED, 3), (RAGGED, NS10), ((POL_NX,), NS10),
+                         ((NS10_N,), NS10), ((NS_WIDE_N,), NS_WIDE))
+                        for sf in (False, True)])
             for shape, ns, sf in cases:
                 op, psi = spo_inputs(kind, shape, ns, dtype, sf)
                 out = getattr(kn, wrap)(op, psi)
@@ -2528,6 +2556,595 @@ def phase_open(card):
     return out
 
 
+# -------------------------------------------------- nonadiabatic slice
+NA_NTRAJ = 20000              # examples/fssh_tully.py's setup, 20,000 traj
+NA_DT = 2.0
+NA_NT = 4000
+NA_NOUT = 400
+NA_CPU_TRAJ = 256             # card vs CPU: the first 256 trajectories
+NA_CPU_NT = 800               # over the first two windows (past x = 0)
+NA_EDC_NT = 4000
+NA_PYR_NTRAJ = 2000           # FSSH on Pyrazine's 3 states (eigh branch)
+NA_PYR_NT = 200
+NA_PYR_NOUT = 100
+EH_NT = 2000                  # Ehrenfest on the same ensemble
+EH_NOUT = 250
+EH_CPU_NT = 500               # card vs CPU through the crossing (x ~ +2)
+EXACT_N = 512                 # the exact SPO wavepacket of test_fssh.py
+EXACT_DT = 1.0
+EXACT_NT = 2600
+NAMD_NX = 2048                # tests/test_namd_adiabatic.py's model
+NAMD_DT = 0.25
+NAMD_NT = 4000
+NAMD_NOUT = 1000
+PYR_N = 256                   # Pyrazine.spo() on 256 x 256 x 3
+PYR_DT = 10.0
+PYR_NT = 2000
+PYR_NOUT = 200
+SV_N = 128                    # SpinVibronic.spo() on 128 x 128 x 4
+SV_NT = 200
+POL_NX = 1024                 # VSC (ncav = 10), VibronicPolariton (2 x 5)
+POL_NT = 1000
+SM_NPTS = 31                  # ShinMetiu2D: 31 x 31 electron grid
+SM_NR = 64                    # proton positions on the card
+SM_CPU = 8                    # of them on the CPU
+TA_NDELAY = 64
+TA_NT = 2000
+NS10 = 10                     # the generic (ns > 4) SPO potential branch
+NS10_N = 1 << 20              # its timing grid: 2^20 points x 10 states
+NS_WIDE = 200                 # rows too long to stage in shared memory
+NS_WIDE_N = 333
+NS_WIDE_TIME_N = 4096
+
+
+def tully_ensemble(n, seed=SEED):
+    """x ~ N(-8, 1), p ~ N(20, 1/2) (examples/fssh_tully.py)."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(-8.0, 1.0, (n, 1)), rng.normal(20.0, 0.5, (n, 1))
+
+
+def aten_ops(fn):
+    """The aten operations one call of ``fn()`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def na_profile(card, label, advance, steps, rate):
+    """Device time per step of ``advance()`` (torch.profiler) and the busy
+    share at ``rate`` steps/s; logged, returned as a dict."""
+    for _ in range(2):
+        advance()
+    total, rows = profile_steps(advance, steps)
+    busy = total / 1e6 * rate
+    log(f"[nonadiabatic] {label}: {rate:.1f} steps/s, device "
+        f"{total:.1f} us per step, busy share {busy:.3f} ({card})")
+    for us_, count, key in rows[:6]:
+        log(f"[nonadiabatic]   {us_:9.2f} us  x{count:<5g} {key[:80]}")
+    return dict(steps_per_s=rate, device_us_per_step=total, busy=busy)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def exact_tully(card):
+    """The exact wavepacket of tests/test_fssh.py on the card: 512 points,
+    dt 1, 2600 Strang steps through the SPO kernels; adiabatic surface
+    populations at the end."""
+    from pyqed_tpu_torch import SPON, tully_i
+    v = tully_i()
+    x = np.linspace(-25, 35, EXACT_N, endpoint=False)
+    V = torch.func.vmap(v)(torch.as_tensor(x[:, None])).numpy()
+    spo = SPON([x], masses=[2000.0], nstates=2, device=DEVICE)
+    spo.set_dpes(V)
+    dx = x[1] - x[0]
+    g = np.exp(-(x + 8.0) ** 2 / 4 + 20j * (x + 8.0))
+    psi0 = np.zeros((EXACT_N, 2), complex)
+    psi0[:, 0] = g / np.sqrt(np.sum(np.abs(g) ** 2) * dx)
+    reset_counts()
+    res, wall = timed(lambda: spo.run(psi0, dt=EXACT_DT, nt=EXACT_NT,
+                                      nout=EXACT_NT, return_states=False))
+    counts = read_counts()
+    want = {"heom_coupling": 0, "spo_phase": EXACT_NT,
+            "spo_potential": 2 * EXACT_NT, "liouvillian_commutator": 0}
+    if counts != want:
+        raise AssertionError(f"exact Tully SPO: launches {counts}")
+    _, Us = np.linalg.eigh(V)
+    psiT = res.psi.cpu().numpy()
+    pop = np.sum(np.abs(np.einsum("xia, xi -> xa", Us, psiT)) ** 2,
+                 axis=0) * dx
+    log(f"[nonadiabatic] exact SPO Tully I ({EXACT_N} points, {EXACT_NT} "
+        f"steps) in {wall:.2f} s, launches {counts}, adiabatic populations "
+        f"{pop[0]:.4f} {pop[1]:.4f}")
+    return pop, counts
+
+
+def phase_fssh(card, out):
+    from pyqed_tpu_torch import FSSH, tully_i
+    pop_exact, counts_x = exact_tully(card)
+    out["exact_spo_launches"] = counts_x
+    x0, p0 = tully_ensemble(NA_NTRAJ)
+    sol = FSSH(tully_i(), mass=2000.0, device=DEVICE)
+    kw = dict(dt=NA_DT, nt=NA_NT, nout=NA_NOUT, key=SEED)
+    sol.run(x0[:8], p0[:8], dt=NA_DT, nt=2, nout=1)      # torch.func warm-up
+    reset_counts()
+    res, wall = timed(lambda: sol.run(x0, p0, **kw))
+    expect_only(read_counts(), "heom_coupling", 0, "FSSH")
+    rate = NA_NT / wall
+    pop, pop_wf = (res.population[-1].cpu().numpy(),
+                   res.population_wf[-1].cpu().numpy())
+    log(f"[nonadiabatic] FSSH Tully I {NA_NTRAJ} trajectories x {NA_NT} "
+        f"steps in {wall:.2f} s ({rate:.1f} steps/s, "
+        f"{NA_NTRAJ * rate:.3g} trajectory-steps/s): surface populations "
+        f"{pop[0]:.4f} {pop[1]:.4f}, |c|^2 {pop_wf[0]:.4f} {pop_wf[1]:.4f}, "
+        f"exact {pop_exact[0]:.4f} {pop_exact[1]:.4f} ({card})")
+    out["fssh_vs_exact"] = gate("nonadiabatic",
+        "FSSH surface populations vs exact SPO, max |diff|",
+        float(np.abs(pop - pop_exact).max()), 0.02)
+    out["fssh_wf_vs_exact"] = gate("nonadiabatic",
+        "FSSH |c|^2 populations vs exact SPO, max |diff|",
+        float(np.abs(pop_wf - pop_exact).max()), 0.02)
+    e = res.energy
+    out["fssh_energy_drift"] = gate("nonadiabatic",
+        "FSSH energy drift through hops, max |E - E0|",
+        (e - e[0:1]).abs().max().item(), 1e-4)
+    out["fssh_norm"] = gate("nonadiabatic", "FSSH |c| norm error",
+                            ((res.c.abs() ** 2).sum(-1) - 1).abs().max()
+                            .item(), 1e-8)
+    # the first trajectories on the CPU with the same draws
+    m = NA_CPU_TRAJ
+    cpu = FSSH(tully_i(), mass=2000.0, device="cpu")
+    draws = cpu.draws(SEED, NA_NT, NA_NTRAJ)[:NA_CPU_NT, :m]
+    rc = cpu.trajectories(cpu.initial_state(x0[:m], p0[:m]), draws, NA_DT,
+                          NA_CPU_NT, NA_NOUT)
+    w = NA_CPU_NT // NA_NOUT
+    diff = max((getattr(res, f)[:w, :m].cpu() - getattr(rc, f)).abs().max()
+               .item() for f in ("x", "p"))
+    diff = max(diff, ((res.c[:w, :m].abs() ** 2).cpu()
+                      - rc.c.abs() ** 2).abs().max().item())
+    same = bool(torch.equal(res.active[:w, :m].cpu(), rc.active))
+    nhop = int((rc.active[-1] != 0).sum())
+    out["fssh_card_vs_cpu"] = gate("nonadiabatic",
+        f"FSSH card vs CPU, {m} trajectories x {NA_CPU_NT} steps "
+        f"({nhop} on the upper surface), x, p, |c|^2", diff, 1e-10)
+    if not same:
+        raise AssertionError("FSSH: active surfaces differ between card "
+                             "and CPU")
+    out["fssh_active_identical"] = same
+    # one EDC ensemble
+    edc = FSSH(tully_i(), mass=2000.0, decoherence="edc", device=DEVICE)
+    re_, wall_e = timed(lambda: edc.run(x0, p0, dt=NA_DT, nt=NA_EDC_NT,
+                                        nout=NA_NOUT, key=SEED))
+    pe = re_.population[-1].cpu().numpy()
+    log(f"[nonadiabatic] FSSH-EDC {NA_NTRAJ} x {NA_EDC_NT} steps in "
+        f"{wall_e:.2f} s ({NA_EDC_NT / wall_e:.1f} steps/s): surface "
+        f"populations {pe[0]:.4f} {pe[1]:.4f} ({card})")
+    out["edc_vs_exact"] = gate("nonadiabatic",
+        "FSSH-EDC surface populations vs exact SPO", float(
+            np.abs(pe - pop_exact).max()), 0.1)
+    out["edc_norm"] = gate("nonadiabatic", "FSSH-EDC |c| norm error",
+                           ((re_.c.abs() ** 2).sum(-1) - 1).abs().max()
+                           .item(), 1e-8)
+    fssh_pyrazine(card, out)
+    # ops and device time per step at full width
+    state = [sol.initial_state(x0, p0)]
+    r = torch.rand(NA_NTRAJ, dtype=torch.float64, device=DEVICE)
+    out["fssh_ops_per_step"] = aten_ops(
+        lambda: sol._step(state[0], r, NA_DT))
+
+    def advance():
+        state[0] = sol._step(state[0], r, NA_DT)
+
+    out["fssh_timing"] = na_profile(card, f"FSSH step, {NA_NTRAJ} "
+                                    f"trajectories, {out['fssh_ops_per_step']}"
+                                    " aten ops per step", advance, 20, rate)
+
+
+def fssh_pyrazine(card, out):
+    """FSSH on Pyrazine's 3-state dpes (2 modes, S2 excitation): the
+    batched-eigh step, which reads the host and so runs eagerly on the
+    card; card vs CPU on the first trajectories with the same draws."""
+    from pyqed_tpu_torch import FSSH, Pyrazine
+    rng = np.random.default_rng(SEED)
+    x0 = rng.normal(0.0, 0.7, (NA_PYR_NTRAJ, 2))
+    p0 = rng.normal(0.0, 0.7, (NA_PYR_NTRAJ, 2))
+    m = NA_CPU_TRAJ
+    res = {}
+    sols = {}
+    for dev, n in ((DEVICE, NA_PYR_NTRAJ), ("cpu", m)):
+        model = Pyrazine(device=dev)
+        sols[dev] = sol = FSSH(lambda x: model.dpes(x[0], x[1]), mass=model.mass,
+                   nstates=3, ndim=2, device=dev)
+        draws = sol.draws(SEED, NA_PYR_NT, NA_PYR_NTRAJ)[:, :n]
+        if dev == DEVICE:                     # torch.func warm-up
+            sol.run(x0[:8], p0[:8], active0=2, dt=10.0, nt=2, nout=1)
+        reset_counts()
+        res[dev], wall = timed(lambda: sol.trajectories(
+            sol.initial_state(x0[:n], p0[:n], active0=2), draws, 10.0,
+            NA_PYR_NT, NA_PYR_NOUT))
+        expect_only(read_counts(), "heom_coupling", 0, "FSSH Pyrazine")
+        if dev == DEVICE:
+            rate = NA_PYR_NT / wall
+            log(f"[nonadiabatic] FSSH Pyrazine 3 states x 2 modes, "
+                f"{n} trajectories x {NA_PYR_NT} steps (eager, batched "
+                f"eigh) in {wall:.2f} s ({NA_PYR_NT / wall:.1f} steps/s), "
+                "surface populations " + " ".join(
+                    f"{v:.4f}" for v in res[dev].population[-1].tolist())
+                + f" ({card})")
+    rd, rc = res[DEVICE], res["cpu"]
+    diff = max((getattr(rd, f)[:, :m].cpu() - getattr(rc, f)).abs().max()
+               .item() for f in ("x", "p"))
+    diff = max(diff, ((rd.c[:, :m].abs() ** 2).cpu()
+                      - rc.c.abs() ** 2).abs().max().item())
+    nhop = int((rc.active[-1] != 2).sum())
+    out["fssh_pyrazine_card_vs_cpu"] = gate("nonadiabatic",
+        f"FSSH Pyrazine card vs CPU, {m} trajectories x {NA_PYR_NT} steps "
+        f"({nhop} hopped off S2), x, p, |c|^2", diff, 1e-10)
+    if not torch.equal(rd.active[:, :m].cpu(), rc.active):
+        raise AssertionError("FSSH Pyrazine: active surfaces differ "
+                             "between card and CPU")
+    out["fssh_pyrazine_norm"] = gate("nonadiabatic",
+        "FSSH Pyrazine |c| norm error", ((rd.c.abs() ** 2).sum(-1) - 1)
+        .abs().max().item(), 1e-8)
+    sol = sols[DEVICE]
+    state = [sol.initial_state(x0, p0, active0=2)]
+    r = torch.rand(NA_PYR_NTRAJ, dtype=torch.float64, device=DEVICE)
+    out["fssh_pyrazine_ops_per_step"] = aten_ops(
+        lambda: sol._step(state[0], r, 10.0))
+
+    def advance():
+        state[0] = sol._step(state[0], r, 10.0)
+
+    out["fssh_pyrazine_timing"] = na_profile(
+        card, f"FSSH Pyrazine step (eager), {NA_PYR_NTRAJ} trajectories, "
+        f"{out['fssh_pyrazine_ops_per_step']} aten ops per step", advance,
+        10, rate)
+
+
+def phase_ehrenfest(card, out):
+    from pyqed_tpu_torch import Ehrenfest, tully_i
+    x0, p0 = tully_ensemble(NA_NTRAJ)
+    c0 = np.tile(np.array([1.0, 0.0], complex), (NA_NTRAJ, 1))
+    sol = Ehrenfest(tully_i(), mass=2000.0, device=DEVICE)
+    reset_counts()
+    res, wall = timed(lambda: sol.run(x0, p0, c0, dt=NA_DT, nt=EH_NT,
+                                      nout=EH_NOUT))
+    expect_only(read_counts(), "heom_coupling", 0, "Ehrenfest")
+    rate = EH_NT / wall
+    pop = res.population[-1].mean(0).cpu().numpy()
+    log(f"[nonadiabatic] Ehrenfest Tully I {NA_NTRAJ} x {EH_NT} steps in "
+        f"{wall:.2f} s ({rate:.1f} steps/s), mean populations "
+        f"{pop[0]:.4f} {pop[1]:.4f} ({card})")
+    e = res.energy
+    out["ehrenfest_energy_drift"] = gate("nonadiabatic",
+        "Ehrenfest energy drift, max |E - E0|",
+        (e - e[0:1]).abs().max().item(), 1e-5)
+    m = NA_CPU_TRAJ
+    rc = Ehrenfest(tully_i(), mass=2000.0, device="cpu").run(
+        x0[:m], p0[:m], c0[:m], dt=NA_DT, nt=EH_CPU_NT, nout=EH_NOUT)
+    w = EH_CPU_NT // EH_NOUT
+    out["ehrenfest_card_vs_cpu"] = gate("nonadiabatic",
+        f"Ehrenfest card vs CPU, {m} trajectories x {EH_CPU_NT} steps",
+        max((getattr(res, f)[:w, :m].cpu() - getattr(rc, f)).abs().max()
+            .item() for f in ("x", "p", "c")), 1e-10)
+    state = [(torch.as_tensor(x0, device=DEVICE),
+              torch.as_tensor(p0, device=DEVICE),
+              torch.as_tensor(c0, device=DEVICE))]
+    out["ehrenfest_ops_per_step"] = aten_ops(
+        lambda: sol._step(state[0], NA_DT))
+
+    def advance():
+        state[0] = sol._step(state[0], NA_DT)
+
+    out["ehrenfest_timing"] = na_profile(
+        card, f"Ehrenfest RK4 step, {out['ehrenfest_ops_per_step']} aten ops",
+        advance, 10, rate)
+
+
+def namd_model(nx):
+    """tests/test_namd_adiabatic.py's avoided crossing at the test's grid
+    spacing 24/256: nx points on [-nx 12/256, nx 12/256) (the test's box
+    at 2048 points would put k_max^2/2m dt at 9, past RK4's stability
+    limit of 2.8)."""
+    L = 12.0 * nx / 256
+    x = np.linspace(-L, L, nx, endpoint=False)
+    e1 = 0.01 * np.tanh(x / 2.0)
+    c = 0.005 * np.exp(-(x ** 2) / 8.0)
+    dpes = np.zeros((nx, 2, 2))
+    dpes[:, 0, 0], dpes[:, 1, 1] = e1, -e1
+    dpes[:, 0, 1] = dpes[:, 1, 0] = c
+    ddpes = np.zeros((nx, 2, 2))
+    ddpes[:, 0, 0] = 0.01 / 2.0 / np.cosh(x / 2.0) ** 2
+    ddpes[:, 1, 1] = -ddpes[:, 0, 0]
+    ddpes[:, 0, 1] = ddpes[:, 1, 0] = -x / 4.0 * c
+    psi0 = np.zeros((nx, 2), complex)
+    psi0[:, 0] = (1 / np.pi) ** 0.25 * np.exp(-(x + 5.0) ** 2 / 2
+                                              + 12j * (x + 5.0))
+    return x, dpes, ddpes, psi0
+
+
+def phase_namd(card, out):
+    from pyqed_tpu_torch import NAMD, SPO, diabatic_to_adiabatic_1d
+    x, dpes, ddpes, psi0 = namd_model(NAMD_NX)
+    dx = x[1] - x[0]
+    v, U, nac = diabatic_to_adiabatic_1d(x, dpes, ddpes=ddpes)
+    spo = SPO(x, mass=1000.0, nstates=2, device=DEVICE)
+    spo.set_dpes(dpes)
+    reset_counts()
+    rs, wall_s = timed(lambda: spo.run(np.einsum("xab, xb -> xa", U, psi0),
+                                       dt=NAMD_DT, nt=NAMD_NT, nout=NAMD_NT,
+                                       return_states=False))
+    counts = read_counts()
+    if counts != {"heom_coupling": 0, "spo_phase": NAMD_NT,
+                  "spo_potential": 2 * NAMD_NT, "liouvillian_commutator": 0}:
+        raise AssertionError(f"NAMD reference SPO: launches {counts}")
+    out["namd_spo_launches"] = counts
+    psi_ad = np.einsum("xba, xb -> xa", U, rs.psi.cpu().numpy())
+    pop_dia = np.sum(np.abs(psi_ad) ** 2, axis=0) * dx
+    sol = NAMD(x, v, nac, mass=1000.0, order=2, device=DEVICE)
+    reset_counts()
+    rn, wall = timed(lambda: sol.run(psi0, dt=NAMD_DT, nt=NAMD_NT,
+                                     nout=NAMD_NOUT))
+    expect_only(read_counts(), "heom_coupling", 0, "NAMD")
+    rate = NAMD_NT / wall
+    pop = sol.population(rn.psi).cpu().numpy()
+    log(f"[nonadiabatic] NAMD order 2, nx = {NAMD_NX}, {NAMD_NT} RK4 steps "
+        f"in {wall:.2f} s ({rate:.1f} steps/s); diabatic SPO {NAMD_NT} steps"
+        f" in {wall_s:.2f} s, launches {counts}; populations "
+        f"{pop[0]:.6f} {pop[1]:.6f} vs {pop_dia[0]:.6f} {pop_dia[1]:.6f} "
+        f"({card})")
+    if not pop_dia[1] > 0.1:
+        raise AssertionError("NAMD: no population transfer in the SPO run")
+    out["namd_vs_spo"] = gate("nonadiabatic",
+        "NAMD vs diabatic SPO populations", float(np.abs(pop - pop_dia)
+                                                  .max()), 2e-4)
+    out["namd_norm"] = gate("nonadiabatic", "NAMD norm error",
+                            abs(float(sol.norm(rn.psi)) - 1.0), 1e-4)
+    rc = NAMD(x, v, nac, mass=1000.0, order=2, device="cpu").run(
+        psi0, dt=NAMD_DT, nt=NAMD_NOUT, nout=NAMD_NOUT)
+    out["namd_card_vs_cpu"] = gate("nonadiabatic",
+        f"NAMD card vs CPU after {NAMD_NOUT} steps",
+        rel(rn.states[1].cpu(), rc.states[1]), 1e-10)
+    psi = [torch.as_tensor(psi0, device=DEVICE)]
+
+    def advance():
+        p = psi[0]
+        k1 = sol.rhs(p)
+        k2 = sol.rhs(p + 0.5 * NAMD_DT * k1)
+        k3 = sol.rhs(p + 0.5 * NAMD_DT * k2)
+        k4 = sol.rhs(p + NAMD_DT * k3)
+        psi[0] = p + NAMD_DT / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    out["namd_timing"] = na_profile(card, "NAMD RK4 step", advance, 20, rate)
+
+
+def spo_card_vs_cpu(label, make, psi0, nt, nout, dt, cpu_nt=None):
+    """run() of make(device) on the card (launches counted) and of
+    make('cpu') for the first ``cpu_nt`` steps; (card result, wall,
+    counts, relative difference of the state after cpu_nt steps)."""
+    sol = make(DEVICE)
+    reset_counts()
+    res, wall = timed(lambda: sol.run(psi0, dt=dt, nt=nt, nout=nout))
+    counts = read_counts()
+    want = {"heom_coupling": 0, "spo_phase": nt, "spo_potential": 2 * nt,
+            "liouvillian_commutator": 0}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    cpu_nt = cpu_nt or nt
+    rc = make("cpu").run(psi0, dt=dt, nt=cpu_nt, nout=nout)
+    w = cpu_nt // nout
+    d = rel(res.states[w].cpu(), rc.states[w])
+    return sol, res, wall, counts, d
+
+
+def phase_vibronic_spo(card, out):
+    from pyqed_tpu_torch.models.polariton_grid import (GridMol, VSC,
+                                                       VibronicPolariton)
+    from pyqed_tpu_torch.models.cavity import Cavity
+    from pyqed_tpu_torch.models.vibronic import Pyrazine, SpinVibronic
+    x = np.linspace(-6.0, 6.0, PYR_N)
+    y = np.linspace(-8.0, 6.0, PYR_N)
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    psi0 = np.zeros((PYR_N, PYR_N, 3), complex)
+    g = np.exp(-(X ** 2 + Y ** 2) / 2)
+    psi0[..., 2] = g / np.sqrt((g ** 2).sum() * (x[1] - x[0]) * (y[1] - y[0]))
+    sol, res, wall, counts, d = spo_card_vs_cpu(
+        "Pyrazine", lambda dev: Pyrazine(x, y, device=dev).spo(), psi0,
+        PYR_NT, PYR_NOUT, PYR_DT, cpu_nt=PYR_NOUT)
+    norms = res.population.sum(1)
+    pops = res.population[-1].cpu().numpy()
+    rate = PYR_NT / wall
+    log(f"[nonadiabatic] Pyrazine S2 excitation {PYR_N}^2 x 3, {PYR_NT} "
+        f"steps of {PYR_DT} au in {wall:.2f} s ({rate:.1f} steps/s, build "
+        f"included), launches {counts}, final populations "
+        + " ".join(f"{p:.4f}" for p in pops) + f" ({card})")
+    out["pyrazine_launches"] = counts
+    out["pyrazine_norm_drift"] = gate("nonadiabatic",
+        "Pyrazine norm drift", (norms - norms[0]).abs().max().item(), 1e-10)
+    out["pyrazine_card_vs_cpu"] = gate("nonadiabatic",
+        f"Pyrazine card vs CPU after {PYR_NOUT} steps", d, 1e-10)
+    psi = [torch.as_tensor(psi0, device=DEVICE)]
+
+    def advance():
+        psi[0] = sol.step(psi[0])
+
+    out["pyrazine_timing"] = na_profile(card, "Pyrazine Strang step",
+                                        advance, 20, rate)
+    xs = np.linspace(-5.0, 5.0, SV_N)
+    Xs, Ys = np.meshgrid(xs, xs, indexing="ij")
+    ps = np.zeros((SV_N, SV_N, 4), complex)
+    gs = np.exp(-((Xs - 1.0) ** 2 + Ys ** 2) / 2)
+    ps[..., 1] = gs / np.sqrt((gs ** 2).sum() * (xs[1] - xs[0]) ** 2)
+    _, _, wall, counts, d = spo_card_vs_cpu(
+        "SpinVibronic", lambda dev: SpinVibronic(device=dev).spo(xs, xs), ps,
+        SV_NT, SV_NT // 4, 0.05)
+    out["spin_vibronic_card_vs_cpu"] = gate("nonadiabatic",
+        f"SpinVibronic {SV_N}^2 x 4 (complex expV), {SV_NT} steps in "
+        f"{wall:.2f} s, launches {counts}; card vs CPU", d, 1e-10)
+    # more than 4 states: the generic branch of the SPO potential kernel
+    xp = np.linspace(-8.0, 8.0, POL_NX, endpoint=False)
+    gp = np.exp(-(xp - 0.5) ** 2 / 2)
+    gp = gp / np.sqrt((gp ** 2).sum() * (xp[1] - xp[0]))
+    pv = np.zeros((POL_NX, 10), complex)
+    pv[:, 0] = gp
+    total = {"spo_phase": 0, "spo_potential": 0}
+    _, _, wall, counts, d = spo_card_vs_cpu(
+        "VSC", lambda dev: VSC(xp, 0.5 * xp ** 2, Cavity(1.0, 10), mass=1.0,
+                               g=0.05, device=dev), pv, POL_NT, POL_NT // 4,
+        0.01)
+    out["vsc_card_vs_cpu"] = gate("nonadiabatic",
+        f"VSC ncav = 10 on {POL_NX} points, {POL_NT} steps in {wall:.2f} s,"
+        f" launches {counts}; card vs CPU", d, 1e-10)
+    for k in total:
+        total[k] += counts[k]
+    vm = np.zeros((POL_NX, 2, 2))
+    vm[:, 0, 0] = 0.5 * 0.2 * xp ** 2
+    vm[:, 1, 1] = 0.5 * 0.2 * (xp - 1.0) ** 2 + 0.4
+    vm[:, 0, 1] = vm[:, 1, 0] = 0.01 * np.exp(-xp ** 2)
+    edip = np.array([[0.0, 1.0], [1.0, 0.0]])
+
+    def vp(dev):
+        m = VibronicPolariton(GridMol(xp, vm, edip, mass=20.0),
+                              Cavity(0.4, 5), device=dev)
+        m.dpes(0.05)
+        return m
+
+    _, _, wall, counts, d = spo_card_vs_cpu("VibronicPolariton", vp, pv,
+                                            POL_NT, POL_NT // 4, 0.5)
+    out["vibronic_polariton_card_vs_cpu"] = gate("nonadiabatic",
+        f"VibronicPolariton 2 x 5 on {POL_NX} points, {POL_NT} steps in "
+        f"{wall:.2f} s, launches {counts}; card vs CPU", d, 1e-10)
+    for k in total:
+        total[k] += counts[k]
+    out["generic_branch_launches"] = total
+
+
+def phase_na_models(card, out):
+    from pyqed_tpu_torch.models.lvc import LVC, Mode
+    from pyqed_tpu_torch.models.mol import Mol
+    from pyqed_tpu_torch.models.pulse import GaussianPulse
+    from pyqed_tpu_torch.models.shinmetiu2d import ShinMetiu2D
+    from pyqed_tpu_torch.signal.pump_probe import TransientAbsorption
+    rs = np.random.default_rng(SEED).uniform(-1.5, 1.5, (SM_NR, 2))
+    E = {}
+    for dev, n in ((DEVICE, SM_NR), ("cpu", SM_CPU)):
+        m = ShinMetiu2D(nstates=3, device=dev)
+        m.create_grid([(-6.0, 6.0), (-6.0, 6.0)], SM_NPTS)
+        reset_counts()
+        (E[dev], _), wall = timed(lambda: m.pes(rs[:n]))
+        expect_only(read_counts(), "heom_coupling", 0, "ShinMetiu2D")
+        if dev == DEVICE:
+            log(f"[nonadiabatic] ShinMetiu2D.pes {SM_NPTS}^2 grid (n = "
+                f"{SM_NPTS ** 2}), {SM_NR} proton positions in {wall:.2f} s "
+                f"({card})")
+    out["shinmetiu2d_card_vs_cpu"] = gate("nonadiabatic",
+        f"ShinMetiu2D eigenvalues card vs CPU at {SM_CPU} positions",
+        rel(E[DEVICE][:SM_CPU].cpu(), E["cpu"]), 1e-10)
+    modes = [Mode(0.2, [((0, 1), 0.05), ((1, 1), 0.1)], 10),
+             Mode(0.12, [((0, 0), -0.03), ((0, 1), 0.02)], 10)]
+    lv = {}
+    for dev in (DEVICE, "cpu"):
+        m = LVC([0.0, 0.3], modes)
+        reset_counts()
+        lv[dev] = m.run(dt=0.05, nt=2000, nout=100, device=dev,
+                        e_ops=[m.buildop(1)])
+        expect_only(read_counts(), "heom_coupling", 0, "LVC")
+    out["lvc_card_vs_cpu"] = gate("nonadiabatic",
+        "LVC 2 x 10 x 10 run (2000 steps) card vs CPU",
+        max_diff(lv[DEVICE], lv["cpu"], ("observables", "psi")), 1e-10)
+    H = np.diag([0.0, 1.0, 1.9])
+    mu = np.array([[0.0, 1.0, 0.2], [1.0, 0.0, 0.7], [0.2, 0.7, 0.0]])
+    delays = np.linspace(0.0, 30.0, TA_NDELAY)
+    S = {}
+    for dev in (DEVICE, "cpu"):
+        ta = TransientAbsorption(
+            Mol(H, edip=mu), GaussianPulse(omegac=1.0, tau=2.0,
+                                           amplitude=0.05),
+            GaussianPulse(omegac=1.0, tau=2.0, amplitude=0.01), delays,
+            device=dev)
+        reset_counts()
+        (_, S[dev]), wall = timed(lambda: ta.run(dt=0.05, nt=TA_NT))
+        expect_only(read_counts(), "heom_coupling", 0, "pump-probe")
+        if dev == DEVICE:
+            log(f"[nonadiabatic] TransientAbsorption 3 levels, {TA_NDELAY} "
+                f"delays x {TA_NT} RK4 steps in {wall:.2f} s ({card})")
+    out["pump_probe_card_vs_cpu"] = gate("nonadiabatic",
+        f"TransientAbsorption ({TA_NDELAY} delays) card vs CPU",
+        rel(S[DEVICE].cpu(), S["cpu"]), 1e-10)
+
+
+def phase_nonadiabatic(card):
+    """The nonadiabatic-dynamics slice at full width (module constants
+    NA_*, EH_*, NAMD_*, PYR_*, SV_*, POL_*, SM_*, TA_*): FSSH on Tully I
+    with 20,000 trajectories against the exact SPO wavepacket (through
+    the SPO kernels, launches 2 x nt and nt), its energy through hops,
+    card vs CPU on 256 trajectories with the same draws, one EDC
+    ensemble, FSSH on Pyrazine's 3 states card vs CPU; Ehrenfest on the
+    same ensemble; NAMD against diabatic SPO
+    at 2048 points; Pyrazine.spo() on 256^2 x 3 (2000 steps),
+    SpinVibronic.spo() on 128^2 x 4, VSC (ncav = 10) and VibronicPolariton
+    (2 x 5) on 1024 points through the generic SPO branch, card vs CPU;
+    ShinMetiu2D.pes, LVC and pump-probe card vs CPU. Every launch count
+    is 0 outside the SPO runs. Returns the gates and times."""
+    out = {}
+    t0 = time.perf_counter()
+    phase_fssh(card, out)
+    phase_ehrenfest(card, out)
+    phase_namd(card, out)
+    phase_vibronic_spo(card, out)
+    phase_na_models(card, out)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[nonadiabatic] phase wall {out['wall_s']:.1f} s ({card})")
+    return out
+
+
+def phase_ns10_timing(card):
+    """The generic (ns > 4) branch of the SPO potential kernel at
+    2^20 points x 10 states, at the polariton runs' 1024 x 10 and, rows
+    read from device memory, at 4096 x 200, against its plain version,
+    torch.matmul and its HBM bound; keyed by (npts, ns)."""
+    from pyqed_tpu_torch.ops import kernels as kn
+    out = {}
+    for npts, ns in ((NS10_N, NS10), (POL_NX, NS10),
+                     (NS_WIDE_TIME_N, NS_WIDE)):
+        op, psi = spo_inputs("potential", (npts,), ns, torch.complex128,
+                             False)
+        t = dict(plain=[], kernel=[], library=[])
+        lib = spo_library("potential")
+        for which, fn in (("plain", kn.spo_potential_apply_ref),
+                          ("kernel", kn.spo_potential_apply),
+                          ("library", lib),
+                          ("kernel", kn.spo_potential_apply),
+                          ("plain", kn.spo_potential_apply_ref)):
+            t[which].append(event_ms(fn, (op, psi), iters=20, warmup=3))
+        b = spo_bound("potential", npts, ns, torch.complex128)
+        out[(npts, ns)] = dict(ms=min(t["kernel"]), plain_ms=min(t["plain"]),
+                               library_ms=t["library"][0], bound=b)
+        log(f"[time] spo_potential generic branch {npts} x {ns} "
+            f"complex128 states-last: kernel "
+            + " / ".join(f"{x:.4f}" for x in t["kernel"])
+            + " ms, plain " + " / ".join(f"{x:.4f}" for x in t["plain"])
+            + f" ms, torch.matmul {t['library'][0]:.4f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}), {b[0] / min(t['kernel']):.2f} of it "
+            f"({card})")
+        del op, psi
+    return out
+
+
 def main():
     card = phase_environment()
     import pyqed_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -2550,11 +3167,13 @@ def main():
               "heom_driven": {"run": phase_heom_driven(),
                               "correlations": phase_heom_correlations()},
               "polariton": phase_polariton(),
-              "ldr": phase_ldr(card), "open": phase_open(card)}
+              "ldr": phase_ldr(card), "open": phase_open(card),
+              "nonadiabatic": phase_nonadiabatic(card)}
     times = phase_timing(card, shapes)
     spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0
     lb_times = phase_lindblad_timing(card)
+    ns10_times = phase_ns10_timing(card)
     slices["timing"] = phase_2des_timing(card)
     slices["heom_driven"]["timing"] = phase_driven_timing(card)
     slices["card"] = card
@@ -2590,6 +3209,30 @@ def main():
             "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })
+    # timed at the main path's shape (the polariton runs' 1024 x 10);
+    # the same at 2^20 points beside it
+    t, big = ns10_times[(POL_NX, NS10)], ns10_times[(NS10_N, NS10)]
+    kernels.append({
+        "name": "spo_potential_generic",
+        "route": "cuda",
+        "source": "pyqed_tpu_torch/csrc/spo.cu",
+        "replaces": "pyqed_tpu/ops/pallas_kernels.py:309",
+        "launches": slices["nonadiabatic"]["generic_branch_launches"][
+            "spo_potential"],
+        "max_abs_err": spo_errs[("potential", (POL_NX,), False,
+                                 torch.complex128)],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1],
+        "library_ms": t["library_ms"],
+        "shape": [POL_NX, NS10],
+        "at_2^20_points": {
+            "max_abs_err": spo_errs[("potential", (NS10_N,), False,
+                                     torch.complex128)],
+            "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound"][0], "library_ms": big["library_ms"]},
+    })
     n_big = 2 * LB_BIG_NVIB
     t = lb_times[(n_big, torch.complex128)]
     kernels.append({

@@ -41,6 +41,16 @@ Ported so far:
   kernel lies on the LDR path (cuBLAS products); ``OQS.lindblad``,
   ``OQS.heom`` and ``LDRN.heom`` run the commutator and coupling kernels.
 
+- the nonadiabatic-dynamics slice: trajectory methods (``FSSH`` with
+  the Tully models, ``Ehrenfest``), adiabatic-representation wavepackets
+  (``NAMD``, the ADT), the vibronic and conical-intersection models
+  (pyrazine, Jahn-Teller, spin-vibronic, triazine, Shin-Metiu in 1D and
+  2D, pyrrole, phenol, LVC), grid polaritons and vibrational strong
+  coupling (``models/polariton_grid``), pump-probe and the third-order
+  responses (``signal/pump_probe``), and Wigner sampling (``utils``).
+  The SPO runs of the models go through the split-operator kernels
+  (more than 4 states: their generic branch); the rest is plain torch.
+
 Entry points run on the card (``device=None`` means ``cuda`` and raises
 without one) unless the caller passes ``device="cpu"``. The package
 imports torch, NumPy and SciPy, never JAX or ``pyqed_tpu``.
@@ -64,6 +74,14 @@ from .models.cavity import Cavity, Composite, Polariton, QRM
 from .open.bath import DrudeBath
 from .open.heom import HEOMSolver, HEOMSolverDrude, solver_from_reference
 from .grid import SPO, SPO2, SPO3, SPON, SPO2NH, ResultSPO, LDRN
+from .grid import (FSSH, Ehrenfest, NAMD, tully_i, tully_ii, tully_iii,
+                   diabatic_to_adiabatic_1d, adt_1d, adt_angle, ADT)
+from .models.lvc import LVC, Mode
+from .models.vibronic import (Pyrazine, JahnTeller, ShinMetiu,
+                              SpinVibronic, VibronicAdiabatic)
+from .models.polariton_grid import GridMol, VibronicPolariton, VSC, TDH
+from .models.shinmetiu2d import ShinMetiu2D
+from . import utils
 from .grid import SincDVR, SineDVR, HermiteDVR, ExponentialDVR, ChebDVR
 from .ops.wavepacket import gwp
 from .config import default_complex, default_real

@@ -110,6 +110,54 @@ def run_solver(step_fn, y0, dt, nt, e_ops: Optional[Sequence] = None,
     return res
 
 
+def cuda_graph_stepper(step: Callable, state, *inputs, graph: bool = True):
+    """``advance(*inputs) -> state`` for a fixed-shape step
+    ``step(state, *inputs) -> state`` (``state`` a tuple tree of tensors).
+
+    On CUDA with ``graph`` the step is captured once as a CUDA graph that
+    writes the new state back into the graph's own buffers (initialised
+    from ``state``), so one step costs the copy of ``inputs`` into the
+    graph and one replay instead of the step's own host enqueue. The
+    state it returns is those buffers: the next ``advance`` overwrites
+    them, so a caller copies what it keeps. A step that reads the host
+    (``torch.linalg.eigh`` checks its info flags on the host) cannot be
+    captured: pass ``graph=False``. Then, and on the CPU, ``advance``
+    runs the step eagerly from ``state``."""
+    from torch.utils import _pytree as pytree
+    leaves, spec = pytree.tree_flatten(state)
+    if not graph or leaves[0].device.type != "cuda":
+        cur = [state]
+
+        def advance_eager(*values):
+            cur[0] = step(cur[0], *values)
+            return cur[0]
+
+        return advance_eager
+    bufs = [t.clone() for t in leaves]
+    ins = [t.clone() for t in inputs]
+    now = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(now)
+    with torch.cuda.stream(side):
+        for _ in range(2):         # first-use set-up outside the capture
+            step(pytree.tree_unflatten(bufs, spec), *ins)
+    now.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pytree.tree_leaves(step(pytree.tree_unflatten(bufs, spec),
+                                      *ins))
+        for b, o in zip(bufs, out):
+            b.copy_(o)
+
+    def advance(*values):
+        for b, v in zip(ins, values):
+            b.copy_(v)
+        graph.replay()
+        return pytree.tree_unflatten(bufs, spec)
+
+    return advance
+
+
 def rk4_step(rhs: Callable):
     """Lift a time-independent RHS f(y) into a (y, t, dt) -> y RK4 stepper
     (reference integrator: pyqed/phys.py:1051)."""

@@ -33,10 +33,14 @@
 // the state-last layout of the public API, and sp = 1, ss = npts for the
 // state-major layout that cuFFT's batched transforms return, so the FFT
 // output is used in place of a copy. ns is a template parameter for
-// ns <= 4 (the state vector lives in registers); a generic kernel covers
-// larger ns. out is a separate buffer, allocated by the caller; nothing
-// is written in place. Vector loads wider than 16 bytes, persistent
-// blocks and fusing the phase into the FFT round trip are left for later.
+// ns <= 4 (the state vector lives in registers); for larger ns a generic
+// kernel gives each thread one row of one point's block and stages the
+// block's contiguous stretch of expV in shared memory, or reads the row
+// from device memory when even 32 rows exceed 48 KB (ns > 96 at
+// complex128, ns > 192 at complex64), so any ns runs. out is a separate
+// buffer, allocated by the caller; nothing is written in place. Vector
+// loads wider than 16 bytes, persistent blocks and fusing the phase into
+// the FFT round trip are left for later.
 #include <cuda_runtime.h>
 
 namespace {
@@ -105,26 +109,77 @@ spo_potential_kernel(const typename Complex<T>::type* __restrict__ expV,
   }
 }
 
-// any ns: the state vector is re-read from psi (it stays in L1)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-spo_potential_kernel_n(const typename Complex<T>::type* __restrict__ expV,
-                       const typename Complex<T>::type* __restrict__ psi,
-                       typename Complex<T>::type* __restrict__ out,
-                       long long npts, int ns, long long sp, long long ss) {
+// ns > 4: one thread per (grid point p, row a), out[p, a] = sum_b
+// expV[p, a, b] psi[p, b]. Thread i = p * ns + a owns row i of expV seen
+// as a matrix of rows (ns consecutive words at i * ns), so a block's rows
+// are one contiguous stretch of expV. Staged: the block copies it into
+// shared memory with coalesced loads (neighbouring threads, neighbouring
+// words) and each thread then reads its row from there. Not staged (rows
+// too long for 32 of them to fit): each thread walks its row in device
+// memory, whose consecutive words share cache lines. The ns threads of a
+// point read the same psi entries. (A thread per point would walk its
+// 16 ns^2-byte block alone: 32 far-apart blocks per warp.)
+template <typename T, bool Staged>
+__global__ void spo_potential_kernel_rows(
+    const typename Complex<T>::type* __restrict__ expV,
+    const typename Complex<T>::type* __restrict__ psi,
+    typename Complex<T>::type* __restrict__ out, long long npts, int ns,
+    long long sp, long long ss) {
   using C = typename Complex<T>::type;
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads
-                      + threadIdx.x;
-  if (p >= npts) return;
-  const long long base = p * sp;
-  const C* m = expV + p * ns * ns;
-  for (int a = 0; a < ns; ++a) {
-    C acc;
-    acc.x = 0;
-    acc.y = 0;
-    for (int b = 0; b < ns; ++b) cfma(acc, m[a * ns + b], psi[base + b * ss]);
-    out[base + a * ss] = acc;
+  const long long rows = npts * ns;
+  const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  const long long nrow = rows - row0 < blockDim.x ? rows - row0
+                                                  : blockDim.x;
+  const C* m = expV + (row0 + threadIdx.x) * ns;
+  if (Staged) {
+    extern __shared__ unsigned char tile_raw[];
+    C* tile = reinterpret_cast<C*>(tile_raw);
+    const C* src = expV + row0 * ns;
+    for (long long k = threadIdx.x; k < nrow * ns; k += blockDim.x)
+      tile[k] = src[k];
+    __syncthreads();
+    m = tile + static_cast<long long>(threadIdx.x) * ns;
   }
+  if (threadIdx.x >= nrow) return;
+  const long long i = row0 + threadIdx.x;
+  const long long p = i / ns;
+  const int a = static_cast<int>(i - p * ns);
+  const long long base = p * sp;
+  C acc;
+  acc.x = 0;
+  acc.y = 0;
+  for (int b = 0; b < ns; ++b) cfma(acc, m[b], psi[base + b * ss]);
+  out[base + a * ss] = acc;
+}
+
+// Launch of the generic branch: blocks of up to kThreads rows, fewer for
+// large ns so that a block's tile stays within 48 KB of shared memory;
+// when even 32 rows do not fit, blocks of kThreads unstaged rows.
+template <typename T>
+int launch_potential_rows(const typename Complex<T>::type* m,
+                          const typename Complex<T>::type* x,
+                          typename Complex<T>::type* y, long long npts,
+                          int ns, long long sp, long long ss,
+                          cudaStream_t st) {
+  using C = typename Complex<T>::type;
+  constexpr size_t kTileBytes = 48 * 1024;
+  const size_t row_bytes = sizeof(C) * static_cast<size_t>(ns);
+  int threads = kThreads;
+  while (threads > 32 && threads * row_bytes > kTileBytes) threads -= 32;
+  const bool staged = threads * row_bytes <= kTileBytes;
+  if (!staged) threads = kThreads;
+  const long long rows = npts * ns;
+  const long long blocks = (rows + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (staged)
+    spo_potential_kernel_rows<T, true>
+        <<<static_cast<unsigned>(blocks), threads, threads * row_bytes, st>>>(
+            m, x, y, npts, ns, sp, ss);
+  else
+    spo_potential_kernel_rows<T, false>
+        <<<static_cast<unsigned>(blocks), threads, 0, st>>>(m, x, y, npts,
+                                                            ns, sp, ss);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_args(long long npts, int ns, long long sp, long long ss) {
@@ -179,8 +234,7 @@ int launch_potential(const void* expV, const void* psi, void* out,
                                                               sp, ss);
       break;
     default:
-      spo_potential_kernel_n<T><<<blocks, kThreads, 0, st>>>(m, x, y, npts,
-                                                             ns, sp, ss);
+      return launch_potential_rows<T>(m, x, y, npts, ns, sp, ss, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

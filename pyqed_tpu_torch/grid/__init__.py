@@ -7,3 +7,7 @@ from .dvr import (
 from .ldr import LDRN, LDR2, ResultLDR, ldr_from_reference
 from .rate import RateFluxSide, flux_operator
 from .ldr import LDR2Jacobi, NonHermLDRN
+from .ehrenfest import Ehrenfest
+from .fssh import FSSH, tully_i, tully_ii, tully_iii
+from .adt import adt_1d, adt_angle, ADT
+from .namd import NAMD, diabatic_to_adiabatic_1d

@@ -9,3 +9,14 @@ from .pulse import (
     std_to_fwhm, jsa, jta, rdm, hom,
 )
 from .cavity import Cavity, Composite, Polariton, QRM
+from .lvc import LVC, Mode, multimode
+from .vibronic import (Pyrazine, JahnTeller, ShinMetiu, ShinMetiuInField,
+                       Pyrazine4, Triazine, SpinVibronic, VibronicAdiabatic)
+from .polariton_grid import GridMol, VibronicPolariton, VSC, TDH
+from .polariton_grid import GridMol2, VibronicPolariton2, berry_curvature_field
+from .shinmetiu2d import (ShinMetiu2D, ShinMetiu2DMagnetic,
+                          ShinMetiu2DElectric, ShinMetiu2,
+                          ShinMetiu2InMagneticField,
+                          ShinMetiu2InElectricField)
+from .phenol import Phenol
+from .pyrrole import Pyrrole, PyrroleCation

@@ -55,7 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import real_dtype_of
+from ..config import real_dtype_of, resolve_device
 
 
 def to_tensor(a, dtype, device):
@@ -211,7 +211,7 @@ def heom_rhs_dot(B0, Bk, damp, flat, g):
 
 
 def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
-                            dtype=torch.complex128, device="cpu"):
+                            dtype=torch.complex128, device=None):
     """Row/column HEOM RHS for site-projector couplings Q_m = e_s e_sᵀ.
 
     left(Q_m) touches only row s and right(Q_m) only column s, so the
@@ -221,8 +221,10 @@ def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
         out_N += −i Σ_m [ρ_{N+m}[s, :] + n_m c_m ρ_{N−m}[s, :]]   at row s
         out_N += +i Σ_m [ρ_{N+m}[:, s] + n_m c_m* ρ_{N−m}[:, s]]  at col s
 
-    plus −i[H, ρ_N] − damp_N ρ_N. Returns ``rhs(ados (nado, n, n))``.
+    plus −i[H, ρ_N] − damp_N ρ_N. Returns ``rhs(ados (nado, n, n))``,
+    its operands on ``device`` (the card when None; raises without one).
     """
+    device = resolve_device(device)
     sites = heom_q_projector_sites(Q)
     if sites is None:
         raise ValueError("rowcol kernel needs site-projector couplings")
@@ -271,7 +273,7 @@ def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
 
 
 def heom_rhs_levels_xla_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
-                                dtype=torch.complex128, device="cpu"):
+                                dtype=torch.complex128, device=None):
     """Order-aware level-blocked HEOM RHS in plain torch (the name is the
     JAX package's, where this form runs through XLA).
 
@@ -281,8 +283,10 @@ def heom_rhs_levels_xla_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     transforms first, Z_k = F_{l−1} @ D_kᵀ, then Σ_k S_k @ Z_k.
 
     Unlike the JAX form, which keeps only Re(keys @ nu), complex bath
-    rates enter the damping in full. Returns ``rhs(ados (nado, n, n))``.
+    rates enter the damping in full. Returns ``rhs(ados (nado, n, n))``,
+    its operands on ``device`` (the card when None; raises without one).
     """
+    device = resolve_device(device)
     blocks = heom_level_blocks(H, Q, c, keys, plus_idx, minus_idx)
     sizes, offs = blocks["structure"]
     V, M = blocks["V"], blocks["M"]
@@ -594,12 +598,14 @@ def drive_superop(edip):
 
 
 def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
-                              dtype=torch.complex128, device="cpu"):
+                              dtype=torch.complex128, device=None):
     """HEOM RHS through :func:`heom_coupling` (kernel name ``cuda``; the
     counterpart of the JAX package's ``heom_rhs_levels_factory``). The
     local term flat @ C − damp·flat stays a torch matmul, outside the
     kernel as it was outside the Pallas call. Returns
-    ``rhs(ados (nado, n, n))``."""
+    ``rhs(ados (nado, n, n))``, its operands on ``device`` (the card when
+    None; raises without one)."""
+    device = resolve_device(device)
     keys = np.asarray(keys)
     nado = keys.shape[0]
     n = np.asarray(H).shape[-1]

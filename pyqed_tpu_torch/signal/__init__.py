@@ -1,7 +1,7 @@
 """Nonlinear spectroscopy signals (PyTorch): the sum-over-states module
-``sos`` and the time-domain 2DES module ``tdes``, with the names of
-``pyqed_tpu.signal``. ``field2des`` and ``pump_probe`` are not yet
-ported."""
+``sos``, the time-domain 2DES module ``tdes`` and pump-probe with the
+third-order responses (``pump_probe``), with the names of
+``pyqed_tpu.signal``. ``field2des`` is not yet ported."""
 from .sos import (
     absorption, linear_absorption, TPA, TPA2D, TPA2D_time_order,
     ESA, GSB, SE, _photon_echo, photon_echo, photon_echo_t3,
@@ -9,3 +9,8 @@ from .sos import (
     polarizability,
 )
 from . import tdes
+from .pump_probe import (TransientAbsorption, chi1, chi3,
+                         response1_freq, response2_freq,
+                         response3_freq, response4_freq,
+                         susceptibility, response1_fd, response2_fd,
+                         response3_fd, response4_fd)

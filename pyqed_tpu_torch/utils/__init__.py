@@ -1,0 +1,4 @@
+"""Utilities (PyTorch): the Wigner-Ville distribution and Wigner
+sampling of ``pyqed_tpu.utils.wigner``. The other modules of
+``pyqed_tpu.utils`` are not yet ported."""
+from .wigner import wigner, spectrogram, wvd, wigner_sample_harmonic

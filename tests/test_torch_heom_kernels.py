@@ -204,7 +204,7 @@ def test_rowcol_factory_matches_jax():
     ados = crand(h["rng"], h["keys"].shape[0], n, n)
     ref = np.asarray(pk.heom_rhs_rowcol_factory(*args, dtype=np.float64)(
         jnp.asarray(ados)))
-    out = kn.heom_rhs_rowcol_factory(*args)(t(ados))
+    out = kn.heom_rhs_rowcol_factory(*args, device="cpu")(t(ados))
     assert rel_err(out.numpy(), ref) < RTOL
 
 
@@ -212,7 +212,8 @@ def test_rowcol_factory_rejects_nonprojector():
     h = hierarchy()
     with pytest.raises(ValueError):
         kn.heom_rhs_rowcol_factory(h["H"], h["Q"], h["c"], h["nu"], h["keys"],
-                                   h["plus_idx"], h["minus_idx"])
+                                   h["plus_idx"], h["minus_idx"],
+                                   device="cpu")
 
 
 def test_levels_factory_matches_jax():
@@ -225,7 +226,7 @@ def test_levels_factory_matches_jax():
         *args, dtype=np.float64)
     fr, fi = embed(ados)
     ref = extract(*rhs(jnp.asarray(fr), jnp.asarray(fi)))
-    out = kn.heom_rhs_levels_xla_factory(*args)(t(ados))
+    out = kn.heom_rhs_levels_xla_factory(*args, device="cpu")(t(ados))
     assert rel_err(out.numpy(), ref) < RTOL
 
 
@@ -239,7 +240,7 @@ def test_coupling_factory_matches_jax_pallas_factory():
         *args, interpret=True, dtype=np.float64)
     fr, fi = embed(ados)
     ref = extract(*rhs(jnp.asarray(fr), jnp.asarray(fi)))
-    out = kn.heom_rhs_coupling_factory(*args)(t(ados))
+    out = kn.heom_rhs_coupling_factory(*args, device="cpu")(t(ados))
     assert rel_err(out.numpy(), ref) < RTOL
 
 
