@@ -18,7 +18,9 @@ nonzero:
    complex128 (rel <= 1e-12) and complex64 (rel <= 1e-5):
    - the HEOM coupling at the FMO flagship shape (680 ADOs, V = 49, nj =
      28), at the n = 8 exciton-chain shape (680 ADOs, V = 64) and on the
-     FMO nexp=2 hierarchy (2,024 ADOs, nj = 42);
+     FMO nexp=2 hierarchy (2,024 ADOs, nj = 42); on the first two also
+     with a batch of B = 1, 7 and 256 hierarchies (F (nado, B, V), one
+     launch for the batch);
    - the SPO phase multiply and potential apply at the 256^3 x 2-state
      chip shape (states-first, the layout of the FFT on the main path)
      and at a ragged 37 x 41 x 29 x 3-state shape in both layouts, and
@@ -124,6 +126,26 @@ nonzero:
      points through the generic SPO branch; ShinMetiu2D.pes (31^2, 64
      positions), LVC and pump-probe (64 delays), card vs CPU <= 1e-10;
      launch counts 0 outside the SPO runs;
+   - the explicit-field 2DES (``phase_field2des``): field_2des_rephasing
+     through kernel='cuda' on the n = 8 chain (680 ADOs, V = 64) with 4 x 4
+     phases x 16 t1 delays = 256 propagations as one batched hierarchy,
+     701 RK4 steps (launch count exactly 4 x 701: one launch per
+     right-hand side for the whole batch; profiled by kernel), the same
+     run with E3 = 0 (phase cycling cancels it, <= 1e-10 of max|P3|),
+     kernel='cuda' against 'einsum' on the card at B = 32 (<= 1e-10), and
+     examples/field_2des.py's two-level system card vs CPU (<= 1e-10) with
+     its rephasing peak on (-w0, -w0);
+   - the rest of grid/ and models/lattice (``phase_grid_rest``), each card
+     vs CPU on the same inputs: WPDN (400 Gaussians, nquad 24; eigenvalues
+     and 1,000 steps), ThawedGaussian on a Morse potential (10,000 steps
+     as CUDA graphs; the CPU over the first 200), NAWPD and VMCG (64
+     Gaussians) on examples/vmcg_avoided_crossing.py's model (VMCG also
+     against its split-operator reference at 1e-5), QT, QTF and NAQT
+     with 100,000 trajectories (NAQT also against SPO), SGCT_LDR at q = 8,
+     the 4-D level-6 sparse interpolator, VibrationalDVR3D at 48^3 (6
+     eigenpairs by block Davidson), Lippmann-Schwinger at 2,000 points x
+     128 k, Fermi-Hubbard at L = 6 (half filling), Rice-Mele bands and
+     the surface Green's function; every launch count stays 0;
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -144,13 +166,16 @@ nonzero:
    steps/s at config #5.
 
 Timing also covers the generic SPO potential branch at 2^20 x 10,
-1,024 x 10 and 4,096 x 200 against torch.matmul and its bound, and the nonadiabatic
-runs' steps/s, aten ops and device time per step and busy share.
+1,024 x 10 and 4,096 x 200 against torch.matmul and its bound, the
+nonadiabatic runs' steps/s, aten ops and device time per step and busy
+share, and the batched HEOM coupling at the field-2DES shape (B = 256)
+against its plain version and its bound.
 
 The line before the last is a JSON summary of the kernels (the generic
 SPO branch as ``spo_potential_generic``, timed at the main path's
-1,024 x 10 with its 2^20-point times beside), with the 2DES, DEOM,
-driven-HEOM, polariton, LDR, open and nonadiabatic gates and times under
+1,024 x 10 with its 2^20-point times beside; the batched coupling as
+``heom_coupling_batched``), with the 2DES, DEOM, driven-HEOM, polariton,
+LDR, open, nonadiabatic, field-2DES and grid gates and times under
 "slices";
 the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
@@ -353,11 +378,23 @@ def coupling_operands(sol, dtype):
 
 def coupling_bound(F, nbr, w, OpT):
     """Bytes (each operand read once, out written once) and flops (one
-    V x V complex row product per existing hierarchy edge) of one call."""
-    V = F.shape[1]
+    V x V complex row product per existing hierarchy edge and batch row)
+    of one call; F is (nado, V) or (nado, B, V)."""
+    V = F.shape[-1]
+    batch = F.numel() // (F.shape[0] * V)
     nbytes = sum(t.numel() * t.element_size() for t in (F, nbr, w, OpT, F))
     edges = int((nbr >= 0).sum().item())
-    return bound_ms(nbytes, 8 * V * V * edges)
+    return bound_ms(nbytes, 8 * V * V * edges * batch)
+
+
+def batched_operands(sol, dtype, B):
+    """The kernel operands of a solver's hierarchy with a batch of B
+    hierarchies, F (nado, B, V) from a numpy seed."""
+    _, nbr, w, OpT = coupling_operands(sol, dtype)
+    rng = np.random.default_rng(SEED + B)
+    shape = (nbr.shape[0], B, OpT.shape[-1])
+    F = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.as_tensor(F, dtype=dtype, device=DEVICE), nbr, w, OpT
 
 
 def check_close(label, out, ref, tol):
@@ -373,6 +410,9 @@ def check_close(label, out, ref, tol):
 
 
 def phase_parity(shapes):
+    """The coupling kernel against its plain version on every hierarchy,
+    unbatched, and with a batch of B hierarchies (F (nado, B, V)) at
+    each B of PARITY_BATCHES on the flagship and chain shapes."""
     from pyqed_tpu_torch.ops import kernels as kn
     errs = {}
     for name, sol in shapes.items():
@@ -383,6 +423,17 @@ def phase_parity(shapes):
             errs[(name, dtype)] = check_close(
                 f"heom_coupling {name} nado={F.shape[0]} V={F.shape[1]} "
                 f"nj={OpT.shape[0]} {str(dtype)[6:]}", out, ref, tol)
+            if name not in ("fmo", "chain8"):
+                continue
+            for B in PARITY_BATCHES:
+                F, nbr, w, OpT = batched_operands(sol, dtype, B)
+                plan = kn.heom_coupling_plan(nbr, w)
+                out = kn.heom_coupling(F, nbr, w, OpT, plan=plan)
+                ref = kn.heom_coupling_ref(F, nbr, w, OpT)
+                errs[(name, dtype, B)] = check_close(
+                    f"heom_coupling batched {name} nado={F.shape[0]} B={B} "
+                    f"V={F.shape[-1]} {str(dtype)[6:]}", out, ref, tol)
+                del out, ref, F
     return errs
 
 
@@ -3145,6 +3196,529 @@ def phase_ns10_timing(card):
     return out
 
 
+# ------------------------------------------------ field 2DES and grid
+F2D_DT = 0.02                 # tests/test_field2des.py's pulses
+F2D_WIDTH = 0.3
+F2D_T2 = 0.5
+F2D_DT1 = 0.4
+F2D_NT1 = 16                  # t1s = 0.4 arange(16): B = 4 x 4 x 16 = 256
+F2D_NT3 = 256
+F2D_AMP = 0.05
+F2D_OMEGA = 1.0
+F2D_CHECK_NT1 = 2             # kernel='cuda' vs 'einsum' on the card, B = 32
+F2D_TLS_NT1 = 24              # examples/field_2des.py: nt1 24, nt3 512
+F2D_TLS_NT3 = 512
+PARITY_BATCHES = (1, 7, 256)
+F2D_TIME_B = 256              # the batched coupling's kernels entry
+
+
+def f2des_chain():
+    """chain_solver()'s n = 8 chain with mu = sum_k |0><k| + h.c. and the
+    ground state: (solver, rho0, mu)."""
+    sol = chain_solver()
+    n = sol.n
+    mu = np.zeros((n, n))
+    mu[0, 1:] = mu[1:, 0] = 1.0
+    rho0 = np.zeros((n, n))
+    rho0[0, 0] = 1.0
+    return sol, rho0, mu
+
+
+def f2des_run(sol, rho0, mu, nt1, nt3=F2D_NT3, amps=(F2D_AMP,) * 3,
+              kernel="cuda"):
+    from pyqed_tpu_torch.signal.field2des import field_2des_rephasing
+    return field_2des_rephasing(
+        sol, rho0, mu, F2D_DT1 * np.arange(nt1), t2=F2D_T2, nt3=nt3,
+        dt=F2D_DT, pulse_width=F2D_WIDTH, e_amps=amps, omega_c=F2D_OMEGA,
+        kernel=kernel)
+
+
+def f2des_nt_total(nt1, nt3):
+    """The RK4 steps of one field_2des_rephasing run (its own horizon:
+    4 sigma before the first pulse and after the third)."""
+    pad = 4.0 * F2D_WIDTH
+    t_det0 = pad + F2D_DT1 * (nt1 - 1) + F2D_T2 + pad
+    return int(round(t_det0 / F2D_DT)) + nt3
+
+
+def phase_field2des(card):
+    """signal/field2des at full width on the n = 8 chain (680 ADOs, V =
+    64; B = 4 x 4 phases x 16 t1 = 256, nt3 256): the coupling kernel
+    launched once per right-hand side for the whole batch (4 x nt_total),
+    the run profiled by kernel; the same run with E3 = 0 (phase cycling
+    cancels it); kernel='cuda' against 'einsum' on the card at B = 32;
+    examples/field_2des.py's two-level system card vs CPU, with its
+    rephasing peak on (-w0, -w0)."""
+    from pyqed_tpu_torch.signal.field2des import rephasing_spectrum
+    out = {}
+    sol, rho0, mu = f2des_chain()
+    B = 16 * F2D_NT1
+    nt_total = f2des_nt_total(F2D_NT1, F2D_NT3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        P3, _, t3s = f2des_run(sol, rho0, mu, F2D_NT1)
+        torch.cuda.synchronize()
+    wall_prof = time.perf_counter() - t0
+    counts = read_counts()
+    expect_only(counts, "heom_coupling", 4 * nt_total, "field 2DES")
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / nt_total, evt.count / nt_total, evt.key))
+    rows.sort(reverse=True)
+    dev_step = sum(r[0] for r in rows)
+    if not finite(P3) or P3.abs().max().item() <= 1e-8:
+        raise AssertionError("field 2DES: P3 not finite or empty")
+    # the same run unprofiled, without the third pulse
+    reset_counts()
+    (P30, _, _), wall = timed(lambda: f2des_run(
+        sol, rho0, mu, F2D_NT1, amps=(F2D_AMP, F2D_AMP, 0.0)))
+    expect_only(read_counts(), "heom_coupling", 4 * nt_total,
+                "field 2DES E3 = 0")
+    out["e3_zero_cancels"] = gate(
+        "field2des", "E3 = 0 run, max|P3| over the full run's",
+        (P30.abs().max() / P3.abs().max()).item(), 1e-10)
+    busy = dev_step * nt_total / 1e6 / wall
+    nado = sol._build(torch.complex128)[0].shape[0]
+    log(f"[field2des] n = {sol.n} chain ({nado} ADOs, V = {sol.n ** 2}), "
+        f"B = {B}, {nt_total} "
+        f"RK4 steps: {wall:.2f} s per run unprofiled ({wall_prof:.2f} s "
+        f"profiled), {1e3 * wall / nt_total:.2f} ms per step; device "
+        f"{dev_step / 1e3:.3f} ms per step, busy share {busy:.3f}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {counts['heom_coupling']} = 4 x {nt_total} ({card})")
+    for us_, count, key in rows[:8]:
+        log(f"[field2des]   {us_:9.1f} us per step, x{count:<5.2f} "
+            f"{key[:80]}")
+    out.update(B=B, nt_total=nt_total, launches=counts["heom_coupling"],
+               s_per_run=wall, ms_per_step=1e3 * wall / nt_total,
+               device_ms_per_step=dev_step / 1e3, busy=busy,
+               device_by_kernel_us_per_step={r[2][:60]: r[0]
+                                             for r in rows[:8]},
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del P30
+    # kernel='cuda' against 'einsum' on the card, B = 32
+    P = {}
+    for k in ("cuda", "einsum"):
+        (P[k], _, _), w = timed(lambda: f2des_run(sol, rho0, mu,
+                                                  F2D_CHECK_NT1, kernel=k))
+        log(f"[field2des] B = {16 * F2D_CHECK_NT1} kernel={k}: {w:.2f} s "
+            f"({card})")
+    out["cuda_vs_einsum"] = gate(
+        "field2des", f"B = {16 * F2D_CHECK_NT1} kernel='cuda' vs 'einsum' "
+        "on the card", rel(P["cuda"], P["einsum"]), 1e-10)
+    # examples/field_2des.py's two-level system, card vs CPU
+    from pyqed_tpu_torch import DrudeBath, HEOMSolver
+    sz = np.diag([1.0, -1.0])
+    sx = np.array([[0.0, 1.0], [1.0, 0.0]])
+    tls = {}
+    for dev in (DEVICE, "cpu"):
+        bath = DrudeBath(temperature=0.5, cutoff=0.5, reorg=0.01)
+        bath.set_bath_ops([sz])
+        s = HEOMSolver((0.5 * F2D_OMEGA * sz).astype(complex), bath=bath,
+                       lmax=1, decomposition="pade", nexp=1, device=dev)
+        reset_counts()
+        tls[dev], w = timed(lambda: f2des_run(
+            s, np.diag([1.0, 0.0]), sx, F2D_TLS_NT1, nt3=F2D_TLS_NT3,
+            kernel="einsum"))
+        expect_only(read_counts(), "heom_coupling", 0, "field 2DES TLS")
+        log(f"[field2des] examples/field_2des.py two-level system on "
+            f"{dev}: {w:.2f} s")
+    out["tls_card_vs_cpu"] = gate(
+        "field2des", "examples/field_2des.py card vs CPU",
+        rel(tls[DEVICE][0].cpu(), tls["cpu"][0]), 1e-10)
+    w1, w3, S = rephasing_spectrum(*tls[DEVICE])
+    i, j = np.unravel_index(int(S.abs().argmax()), tuple(S.shape))
+    peak = (w1[i].item(), w3[j].item())
+    ok = (abs(peak[0] + F2D_OMEGA) < 2 * (w1[1] - w1[0]).item()
+          and abs(peak[1] + F2D_OMEGA) < 2 * (w3[1] - w3[0]).item())
+    log(f"[field2des] TLS rephasing peak at ({peak[0]:+.3f}, "
+        f"{peak[1]:+.3f}), expected (-{F2D_OMEGA}, -{F2D_OMEGA})")
+    if not ok:
+        raise AssertionError(f"field 2DES TLS peak at {peak}")
+    out["tls_peak"] = peak
+    return out
+
+
+def batched_coupling_timing(card):
+    """The batched coupling at the field-2DES shape (chain8, B =
+    F2D_TIME_B): kernel and plain version by CUDA events in turns, and
+    the bound."""
+    from pyqed_tpu_torch.ops import kernels as kn
+    args = batched_operands(chain_solver(), torch.complex128, F2D_TIME_B)
+    plan = kn.heom_coupling_plan(args[1], args[2])
+    fns = {"plain": kn.heom_coupling_ref,
+           "kernel": lambda *a: kn.heom_coupling(*a, plan=plan)}
+    t = {k: [] for k in fns}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which].append(event_ms(fns[which], args, iters=10, warmup=2))
+    b = coupling_bound(*args)
+    log(f"[time] heom_coupling batched chain8 B = {F2D_TIME_B} complex128: "
+        "kernel " + " / ".join(f"{x:.3f}" for x in t["kernel"]) + " ms, "
+        "plain " + " / ".join(f"{x:.3f}" for x in t["plain"]) + f" ms, "
+        f"bound {b[0]:.3f} ms ({b[1]}), {b[0] / min(t['kernel']):.2f} of it "
+        f"({card})")
+    return dict(ms=min(t["kernel"]), plain_ms=min(t["plain"]), bound=b)
+
+
+GR_WPDN_N = 20                # WPDN: 20 x 20 Gaussians (400), nquad 24
+GR_WPDN_A = 8.0
+GR_WPDN_NQUAD = 24
+GR_WPDN_NT = 1000
+GR_TG_NT = 10000              # ThawedGaussian on a Morse potential
+GR_TG_CPU_NT = 200            # card vs CPU over the first 200 steps
+GR_NA_N = 64                  # NAWPD and VMCG: examples/vmcg_avoided_crossing.py
+GR_NA_NT = 400
+GR_VM_ALPHA = 16.0            # VMCG widths: 64 Gaussians on [-8, 8]
+GR_VM_NT = 100
+GR_VM_CPU_NT = 20
+GR_QT_NTRAJ = 100000
+GR_QTF_NT = 1000
+GR_QTF_CPU_NT = 100           # card vs CPU over the first 100 steps
+GR_NAQT_NT = 200
+GR_NAQT_CPU_NT = 80
+GR_SG_Q = 8                   # SGCT_LDR: tests/test_polariton2_sgct.py
+GR_SI = (4, 6, 1000)          # SparseInterpolator: 4-D, level 6, 1,000 points
+GR_DVR_N = 48                 # VibrationalDVR3D at 48^3 points
+GR_DVR_NEIG = 6
+GR_LS = (2000, 128, 4)        # Lippmann-Schwinger: points, k, k on the CPU
+GR_FH_L = 6                   # FermiHubbard, half filling
+
+
+def ac_potential(x):
+    """examples/vmcg_avoided_crossing.py's two diabatic surfaces, in
+    torch ops of a point x (1,)."""
+    c = torch.full_like(x[0], 0.15)
+    return torch.stack([torch.stack([0.5 * (x[0] + 1.0) ** 2, c]),
+                        torch.stack([c, 0.5 * (x[0] - 1.0) ** 2 + 0.3])])
+
+
+def ac_spo(nt, dt=0.01, n=256):
+    """The example's split-operator reference on the card
+    (kernel='xla', so no SPO kernel runs): final populations."""
+    from pyqed_tpu_torch import SPON
+    xg = np.linspace(-8, 8, n)
+    v = np.zeros((n, 2, 2))
+    v[:, 0, 0] = 0.5 * (xg + 1.0) ** 2
+    v[:, 1, 1] = 0.5 * (xg - 1.0) ** 2 + 0.3
+    v[:, 0, 1] = v[:, 1, 0] = 0.15
+    spo = SPON([xg], masses=1.0, nstates=2, kernel="xla", device=DEVICE)
+    spo.set_dpes(v)
+    psi0 = np.zeros((n, 2), complex)
+    psi0[:, 0] = np.exp(-0.5 * (xg + 1.0) ** 2)
+    psi0 /= np.sqrt((np.abs(psi0) ** 2).sum() * (xg[1] - xg[0]))
+    res = spo.run(psi0, dt=dt, nt=nt, nout=nt)
+    return res.population[-1]
+
+
+def grid_wavepackets(card, out):
+    from pyqed_tpu_torch.grid.gwp import GWPBasis, ThawedGaussian, WPDN
+    from pyqed_tpu_torch.grid.nawpd import NAWPD
+    from pyqed_tpu_torch.grid.vmcg import VMCG
+    # WPDN: 400 Gaussians on a 20 x 20 grid, an anharmonic 2-D potential
+    centers = [np.linspace(-4.0, 4.0, GR_WPDN_N)] * 2
+    pot = lambda x: 0.5 * (x[0] ** 2 + 1.3 * x[1] ** 2) + 0.05 * x[0] * x[1] ** 2
+    r = {}
+    for dev in (DEVICE, "cpu"):
+        w = WPDN(GWPBasis.grid(centers, a=GR_WPDN_A, device=dev),
+                 potential=pot, nquad=GR_WPDN_NQUAD)
+        (E, C), t_build = timed(lambda: w.eigenstates())
+        c0 = (C[:, 0] + 0.5 * C[:, 1]).cpu()      # the card's, on both
+        if dev == DEVICE:
+            c0_card = c0
+        run, t_run = timed(lambda: w.run(c0_card, 0.01, GR_WPDN_NT,
+                                         nout=10))
+        r[dev] = (E, run)
+        log(f"[grid] WPDN {GR_WPDN_N ** 2} Gaussians, nquad "
+            f"{GR_WPDN_NQUAD} on {dev}: H and eigenstates {t_build:.2f} s, "
+            f"{GR_WPDN_NT} steps {t_run:.2f} s")
+    out["wpdn_E"] = gate("grid", "WPDN eigenvalues card vs CPU",
+                         rel(r[DEVICE][0].cpu(), r["cpu"][0]), 1e-10)
+    out["wpdn_run"] = gate("grid", "WPDN coefficients and <x> card vs CPU",
+                           max(rel(a.cpu(), b) for a, b in
+                               zip(r[DEVICE][1][1:], r["cpu"][1][1:])), 1e-10)
+    # ThawedGaussian on a Morse potential (one CUDA graph per step)
+    morse = lambda x: 0.2 * (1 - torch.exp(-x)) ** 2
+    tg = ThawedGaussian(morse, mass=1.0, device=DEVICE)
+    tg.run(0.3, 0.1, dt=0.01, nt=10)      # the first torch.func traces
+    res, t_card = timed(lambda: tg.run(0.3, 0.1, dt=0.01, nt=GR_TG_NT,
+                                       nout=GR_TG_CPU_NT))
+    cpu = ThawedGaussian(morse, mass=1.0, device="cpu").run(
+        0.3, 0.1, dt=0.01, nt=GR_TG_CPU_NT, nout=GR_TG_CPU_NT)
+    log(f"[grid] ThawedGaussian Morse {GR_TG_NT} RK4 steps on the card in "
+        f"{t_card:.2f} s ({GR_TG_NT / t_card:.0f} steps/s, CUDA graph)")
+    out["thawed_card_vs_cpu"] = gate(
+        "grid", f"ThawedGaussian first {GR_TG_CPU_NT} steps card vs CPU",
+        max(rel(a[:1].cpu(), b) for a, b in zip(res[1:], cpu[1:])), 1e-10)
+    # RK4's global error at dt = 0.01 over t = 100 (3.2e-6 on an H100)
+    out["thawed_norm_drift"] = gate(
+        "grid", f"ThawedGaussian norm drift over {GR_TG_NT} steps",
+        (res[5].max() - res[5].min()).item() / res[5][0].item(), 1e-5)
+    out["thawed_steps_per_s"] = GR_TG_NT / t_card
+    # NAWPD on the example's model: 64 Gaussians with a dq^2 = 4
+    xq = np.linspace(-6.0, 6.0, GR_NA_N)
+    basis = [(q, 4.0 / (xq[1] - xq[0]) ** 2) for q in xq]
+    V1 = lambda x: np.array([[0.5 * (x + 1) ** 2, 0.15],
+                             [0.15, 0.5 * (x - 1) ** 2 + 0.3]])
+    pops = {}
+    for dev in (DEVICE, "cpu"):
+        nw = NAWPD(basis, V1, device=dev)
+        psi0 = nw.project(lambda x: np.exp(-0.5 * (x + 1) ** 2), state=0)
+        res, t = timed(lambda: nw.run(psi0, 0.01, GR_NA_NT, nout=40))
+        pops[dev] = torch.stack([torch.stack([nw.population(s),
+                                              nw.population(s, "diabatic")])
+                                 for s in res.states])
+        log(f"[grid] NAWPD {GR_NA_N} Gaussians x 2 states, {GR_NA_NT} RK4 "
+            f"steps on {dev} in {t:.2f} s")
+    out["nawpd_card_vs_cpu"] = gate(
+        "grid", "NAWPD populations card vs CPU (eigenvector phases differ)",
+        rel(pops[DEVICE].cpu(), pops["cpu"]), 1e-10)
+    # VMCG: 64 frozen Gaussians on Ehrenfest trajectories on the
+    # example's model, against the CPU and the example's split-operator
+    # reference. The example's own basis (unit widths on [-3.5, 2.5])
+    # at N = 64 puts many overlap eigenvalues near the 1e-10 cut of the
+    # regularized inverse, where LAPACK and cuSOLVER cut differently (the
+    # card and the CPU parted by 9e-6 after 20 steps on an H100); with
+    # widths 16 on [-8, 8] the smallest is 5e-4 of the largest. The
+    # Gaussians far out carry amplitudes near 1e-12, whose ratio between
+    # the states, and so whose Ehrenfest force, is rounding noise: the
+    # check holds the populations and the amplitudes, not the centres
+    qs = np.linspace(-8.0, 8.0, GR_NA_N)[:, None]
+    ps = np.zeros((GR_NA_N, 1))
+    al = np.full((GR_NA_N, 1), GR_VM_ALPHA + 0j)
+    vm = {}
+    for dev, nt in ((DEVICE, GR_VM_NT), ("cpu", GR_VM_CPU_NT)):
+        sol = VMCG(ac_potential, mass=1.0, nstates=2, device=dev)
+        C0 = sol.project(qs, ps, al, np.array([-1.0]), np.array([0.0]),
+                         np.array([1.0 + 0j]), state=0)
+        vm[dev], t = timed(lambda: sol.run(qs, ps, al, C0, 0.01, nt,
+                                           nout=GR_VM_CPU_NT))
+        log(f"[grid] VMCG N = {GR_NA_N}, {nt} RK4 steps on {dev} in "
+            f"{t:.2f} s ({nt / t:.1f} steps/s, eager: eigh reads the host)")
+    out["vmcg_card_vs_cpu"] = gate(
+        "grid", f"VMCG populations and amplitudes after {GR_VM_CPU_NT} "
+        "steps card vs CPU",
+        max(rel(vm[DEVICE][k][1].cpu(), vm["cpu"][k][1])
+            for k in ("populations", "C")), 1e-10)
+    out["vmcg_vs_spo"] = gate(
+        "grid", f"VMCG populations vs split operator after {GR_VM_NT} steps "
+        "(the example's tolerance)",
+        (vm[DEVICE]["populations"][-1] - ac_spo(GR_VM_NT)).abs().max().item(),
+        1e-5)
+
+
+def grid_trajectories(card, out):
+    from pyqed_tpu_torch.grid import qtraj as tq
+    N = GR_QT_NTRAJ
+    # QT: a free Gaussian (tests/test_lattice_nrg_qt.py:91), one ensemble
+    r = {}
+    sig0 = 1.0 / np.sqrt(2.0)
+    for dev in (DEVICE, "cpu"):
+        qt = tq.QT(N, 1, mass=[1.0], device=dev)
+        qt.sample(SEED, x0=[0.0], sigma=[sig0])
+        qt.set_force(lambda x: torch.zeros_like(x))
+        r[dev], t = timed(lambda: qt.run(dt=0.01, nt=200, nout=200))
+        log(f"[grid] QT {N} trajectories, 200 steps on {dev} in {t:.2f} s")
+    out["qt_card_vs_cpu"] = gate("grid", "QT x, xAve, energy card vs CPU",
+                                 max(rel(getattr(r[DEVICE], k).cpu(),
+                                         getattr(r["cpu"], k))
+                                     for k in ("x", "xAve", "observables")),
+                                 1e-10)
+    var = r[DEVICE].x.var().item()
+    exact = sig0 ** 2 + (2.0 / (2 * sig0)) ** 2
+    out["qt_width"] = gate("grid", "QT width at t = 2 vs the free "
+                           "Gaussian's, relative", abs(var / exact - 1), 0.02)
+    # QTF: tests/test_qtf.py:73 (order 1, no friction) at N trajectories
+    derivs = lambda x: (x ** 2 / 2.0, x)
+    q = {}
+    for dev, nt in ((DEVICE, GR_QTF_NT), ("cpu", GR_QTF_CPU_NT)):
+        sol = tq.QTF(N, mass=1.0, order=1, friction=0.0, device=dev)
+        ens = sol.sample(a0=0.5, x0=0.8)
+        q[dev], t = timed(lambda: sol.run(*ens, derivs, dt=0.02, nt=nt,
+                                          nout=50))
+        log(f"[grid] QTF {N} trajectories, {nt} RK4 steps on {dev} in "
+            f"{t:.2f} s")
+    m = GR_QTF_CPU_NT // 50
+    out["qtf_card_vs_cpu"] = gate(
+        "grid", f"QTF energies over the first {GR_QTF_CPU_NT} steps card vs "
+        "CPU", rel(q[DEVICE].observables[:m].cpu(), q["cpu"].observables),
+        1e-10)
+    E = q[DEVICE].observables[:, 3]
+    out["qtf_energy"] = gate("grid", "QTF total energy ptp/mean (the test's "
+                             "gate)", ((E.max() - E.min()) / E.mean()).item(),
+                             1e-3)
+    # NAQT: tests/test_polariton2_sgct.py:132, against the CPU and SPO
+    def dpes1(x):
+        c = torch.full_like(x[0], 0.15)
+        return torch.stack([torch.stack([0.5 * x[0] ** 2, c]),
+                            torch.stack([c, 0.5 * x[0] ** 2 + 1.0])])
+
+    na = {}
+    for dev, nt in ((DEVICE, GR_NAQT_NT), ("cpu", GR_NAQT_CPU_NT)):
+        sol = tq.NAQT(N, 1, 2, dpes1, device=dev)
+        x, p, c = sol.sample(a=[2.0], x0=[1.0], state=1)
+        na[dev], t = timed(lambda: sol.run(x, p, c, dt=0.005, nt=nt,
+                                           nout=40))
+        log(f"[grid] NAQT {N} trajectories, {nt} steps on {dev} in "
+            f"{t:.2f} s")
+    m = GR_NAQT_CPU_NT // 40 + 1
+    out["naqt_card_vs_cpu"] = gate(
+        "grid", f"NAQT populations and <x> over the first {GR_NAQT_CPU_NT} "
+        "steps card vs CPU",
+        max(rel(getattr(na[DEVICE], k)[:m].cpu(), getattr(na["cpu"], k))
+            for k in ("population", "xave")), 1e-10)
+    from pyqed_tpu_torch import SPON
+    xg = np.linspace(-8, 8, 192, endpoint=False)
+    v = np.zeros((192, 2, 2))
+    v[:, 0, 0] = 0.5 * xg ** 2
+    v[:, 1, 1] = 0.5 * xg ** 2 + 1.0
+    v[:, 0, 1] = v[:, 1, 0] = 0.15
+    spo = SPON([xg], masses=[1.0], nstates=2, kernel="xla", device=DEVICE)
+    spo.set_dpes(v)
+    psi0 = np.zeros((192, 2), complex)
+    psi0[:, 1] = np.exp(-(xg - 1.0) ** 2)
+    psi0 /= np.sqrt(np.sum(np.abs(psi0) ** 2) * (xg[1] - xg[0]))
+    pop = spo.run(psi0, dt=0.005, nt=GR_NAQT_NT, nout=40).population
+    out["naqt_vs_spo"] = gate("grid", "NAQT populations vs SPO (exact "
+                              "here; the test's gate)",
+                              (na[DEVICE].population - pop).abs().max().item(),
+                              1e-8)
+
+
+def grid_sparse_and_eigen(card, out):
+    from pyqed_tpu_torch.grid.nusol import VibrationalDVR3D
+    from pyqed_tpu_torch.grid.scattering import LippmannSchwingerSolver
+    from pyqed_tpu_torch.grid.smolyak import SGCT_LDR, SparseInterpolator
+
+    # SGCT_LDR at q = 8 (tests/test_polariton2_sgct.py:84)
+    def dpes(grids):
+        X, Y = np.meshgrid(*grids, indexing="ij")
+        return (0.5 * (X ** 2 + Y ** 2))[..., None, None]
+
+    def psi0(grids):
+        X, Y = np.meshgrid(*grids, indexing="ij")
+        return np.exp(-((X - 1.0) ** 2 + Y ** 2) / 2)[..., None]
+
+    sg = {}
+    for dev in (DEVICE, "cpu"):
+        sg[dev], t = timed(lambda: SGCT_LDR(
+            [(-7, 7), (-7, 7)], q=GR_SG_Q, dpes_fn=dpes, psi0_fn=psi0,
+            nstates=1, device=dev).run(dt=0.02, nt=60, nout=10))
+        log(f"[grid] SGCT_LDR q = {GR_SG_Q} on {dev} in {t:.2f} s")
+    out["sgct_card_vs_cpu"] = gate("grid", "SGCT_LDR <x>(t) card vs CPU",
+                                   rel(sg[DEVICE][1].cpu(), sg["cpu"][1]),
+                                   1e-10)
+    t_, xavg = sg[DEVICE][0], sg[DEVICE][1]
+    out["sgct_vs_cos"] = gate("grid", "SGCT_LDR <x>(t) vs cos t (the test's "
+                              "gate)", (xavg - torch.cos(t_)).abs().max()
+                              .item(), 1e-3)
+    # SparseInterpolator, 4-D level 6
+    d, level, nout = GR_SI
+    pts = np.random.default_rng(SEED).random((nout, d))
+    f = lambda X: np.exp(-np.sum((X - 0.4) ** 2, axis=1)) * np.cos(X[:, 0])
+    si = {}
+    for dev in (DEVICE, "cpu"):
+        s = SparseInterpolator(level, d, "CC", tol=0.0, device=dev)
+        si[dev], t = timed(lambda: s.fit(f, pts))
+        log(f"[grid] SparseInterpolator {d}-D level {level}, "
+            f"{sum(len(lv['Xn']) for lv in s.levels)} nodes, {nout} points "
+            f"on {dev} in {t:.2f} s")
+    out["sparse_interp_card_vs_cpu"] = gate(
+        "grid", "SparseInterpolator card vs CPU",
+        rel(si[DEVICE].cpu(), si["cpu"]), 1e-10)
+    out["sparse_interp_error"] = float(
+        np.abs(si[DEVICE].cpu().numpy() - f(pts)).max())
+    log(f"[grid] SparseInterpolator max error against the function "
+        f"{out['sparse_interp_error']:.2e}")
+    # VibrationalDVR3D at 48^3 points, 6 eigenpairs
+    pes = lambda X, Y, Z: (0.5 * (X ** 2 + 1.3 * Y ** 2 + 0.8 * Z ** 2)
+                           + 0.05 * X * Y * Z)
+    ev = {}
+    for dev in (DEVICE, "cpu"):
+        dv = VibrationalDVR3D(pes, [1.0, 1.0, 1.0], [(-6.0, 6.0)] * 3,
+                              [GR_DVR_N] * 3, device=dev)
+        ev[dev], t = timed(lambda: dv.run(neig=GR_DVR_NEIG, tol=1e-9))
+        log(f"[grid] VibrationalDVR3D {GR_DVR_N}^3, {GR_DVR_NEIG} eigenpairs "
+            f"on {dev} in {t:.2f} s: {ev[dev].cpu().numpy()}")
+    out["dvr3d_card_vs_cpu"] = gate(
+        "grid", "VibrationalDVR3D energies card vs CPU (Davidson tol 1e-9)",
+        rel(ev[DEVICE].cpu(), ev["cpu"]), 1e-9)
+    # Lippmann-Schwinger: 2,000 points x 128 k on the card, 4 k on the CPU
+    n, nk, ncpu = GR_LS
+    ks = np.linspace(0.5, 6.0, nk)
+    V = lambda x: 2.0 * (np.abs(x) < 0.5)
+    (psi, T), t = timed(lambda: LippmannSchwingerSolver(
+        -8, 8, n - 1, V, device=DEVICE).run(ks))
+    sel = np.arange(0, nk, nk // ncpu)
+    psi_c, _ = LippmannSchwingerSolver(-8, 8, n - 1, V,
+                                       device="cpu").run(ks[sel])
+    log(f"[grid] LippmannSchwingerSolver {n} points x {nk} k on the card in "
+        f"{t:.2f} s")
+    out["lippmann_schwinger_card_vs_cpu"] = gate(
+        "grid", f"LippmannSchwingerSolver psi at {ncpu} k card vs CPU",
+        rel(psi[torch.as_tensor(sel, device=psi.device)].cpu(), psi_c),
+        1e-10)
+
+
+def grid_lattice(card, out):
+    from pyqed_tpu_torch.models.lattice import (FermiHubbard, RiceMele,
+                                                green_renormalization)
+    fh = {}
+    for dev in (DEVICE, "cpu"):
+        m = FermiHubbard(1.0, 4.0, GR_FH_L, nelec=GR_FH_L, device=dev)
+        fh[dev], t = timed(lambda: m.run(6))
+        log(f"[grid] FermiHubbard L = {GR_FH_L} (dimension "
+            f"{4 ** GR_FH_L}), half filling, on {dev} in {t:.2f} s: "
+            f"{fh[dev].cpu().numpy()}")
+    out["fermi_hubbard_card_vs_cpu"] = gate(
+        "grid", "FermiHubbard lowest 6 half-filling energies card vs CPU",
+        rel(fh[DEVICE].cpu(), fh["cpu"]), 1e-10)
+    rm = {}
+    for dev in (DEVICE, "cpu"):
+        m = RiceMele(0.5, 1.0, nsites=200, device=dev)
+        g = green_renormalization(np.array([[0.0, 0.5], [0.5, 0.0]]),
+                                  np.array([[0.0, 0.0], [1.0, 0.0]]),
+                                  energy=0.3, device=dev)
+        rm[dev] = (m.run()[0], m.band_structure(), *g)
+    out["rice_mele_card_vs_cpu"] = gate(
+        "grid", "RiceMele bands and green_renormalization card vs CPU",
+        max(rel(a.cpu(), b) for a, b in zip(rm[DEVICE], rm["cpu"])), 1e-10)
+
+
+def phase_grid_rest(card):
+    """The rest of grid/ and models/lattice at full width, each check
+    card against CPU on the same inputs (sizes GR_*): WPDN, ThawedGaussian,
+    NAWPD and VMCG (VMCG also against the split-operator reference),
+    QT, QTF and NAQT with 100,000 trajectories, SGCT_LDR, the sparse
+    interpolator, VibrationalDVR3D with block Davidson, Lippmann-Schwinger,
+    Fermi-Hubbard, Rice-Mele and the Sancho-Rubio decimation. No
+    hand-written kernel lies on this path: every launch count stays 0."""
+    out = {}
+    t0 = time.perf_counter()
+    reset_counts()
+    grid_wavepackets(card, out)
+    grid_trajectories(card, out)
+    grid_sparse_and_eigen(card, out)
+    grid_lattice(card, out)
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"grid phase: launches {counts}, expected none")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[grid] phase wall {out['wall_s']:.1f} s, launches {counts} "
+        f"({card})")
+    return out
+
+
 def main():
     card = phase_environment()
     import pyqed_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -3168,12 +3742,15 @@ def main():
                               "correlations": phase_heom_correlations()},
               "polariton": phase_polariton(),
               "ldr": phase_ldr(card), "open": phase_open(card),
-              "nonadiabatic": phase_nonadiabatic(card)}
+              "nonadiabatic": phase_nonadiabatic(card),
+              "field2des": phase_field2des(card),
+              "grid": phase_grid_rest(card)}
     times = phase_timing(card, shapes)
     spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0
     lb_times = phase_lindblad_timing(card)
     ns10_times = phase_ns10_timing(card)
+    f2d_time = batched_coupling_timing(card)
     slices["timing"] = phase_2des_timing(card)
     slices["heom_driven"]["timing"] = phase_driven_timing(card)
     slices["card"] = card
@@ -3232,6 +3809,21 @@ def main():
                                      torch.complex128)],
             "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound"][0], "library_ms": big["library_ms"]},
+    })
+    kernels.append({
+        "name": "heom_coupling_batched",
+        "route": "cuda",
+        "source": "pyqed_tpu_torch/csrc/heom_coupling.cu",
+        "replaces": "pyqed_tpu/ops/pallas_kernels.py:681",
+        "launches": slices["field2des"]["launches"],
+        "max_abs_err": errs[("chain8", torch.complex128, F2D_TIME_B)],
+        "ms": f2d_time["ms"],
+        "plain_ms": f2d_time["plain_ms"],
+        "bound_ms": f2d_time["bound"][0],
+        "bound_by": f2d_time["bound"][1],
+        "library_ms": None,
+        "shape": {"hierarchy": "chain8", "nado": 680, "B": F2D_TIME_B,
+                  "V": 64},
     })
     n_big = 2 * LB_BIG_NVIB
     t = lb_times[(n_big, torch.complex128)]

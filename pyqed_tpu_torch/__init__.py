@@ -51,6 +51,17 @@ Ported so far:
   The SPO runs of the models go through the split-operator kernels
   (more than 4 states: their generic branch); the rest is plain torch.
 
+- the rest of ``grid``, ``models`` and ``signal``: Gaussian-basis
+  wavepackets (``WPD``, ``WPDN``, ``ThawedGaussian``), nonadiabatic
+  Gaussian DVRs (``NAWPD``), variational moving Gaussians (``VMCG``),
+  quantum trajectories (``QT``, ``NAQT``, ``QTF``), sparse grids and
+  interpolation (``grid/smolyak``), NuSol and the Davidson eigensolvers
+  (``ops/davidson``), Lippmann-Schwinger scattering, lattice models
+  (``models/lattice``) and the explicit-field phase-cycled 2DES
+  (``signal/field2des``), which propagates its whole phase × t1 batch as
+  one hierarchy state: with ``kernel='cuda'`` one launch of the HEOM
+  coupling kernel per right-hand side covers the batch.
+
 Entry points run on the card (``device=None`` means ``cuda`` and raises
 without one) unless the caller passes ``device="cpu"``. The package
 imports torch, NumPy and SciPy, never JAX or ``pyqed_tpu``.
@@ -84,6 +95,7 @@ from .models.shinmetiu2d import ShinMetiu2D
 from . import utils
 from .grid import SincDVR, SineDVR, HermiteDVR, ExponentialDVR, ChebDVR
 from .ops.wavepacket import gwp
+from .ops.davidson import davidson, block_davidson
 from .config import default_complex, default_real
 from .open.lindblad import (LindbladSolver, LiouvilleSolver, Lindblad_solver,
                             driven_dissipative_dynamics, absorption_eseries)

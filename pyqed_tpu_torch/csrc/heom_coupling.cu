@@ -10,6 +10,11 @@
 //
 //     out[d, :] = sum_{j < nj} w[d, j] * F[nbr[d, j], :] @ OpT[j]
 //
+// and, for a batch of B hierarchies that share the graph and the
+// operators (F of shape (nado, B, V), as the phase-cycled field 2DES of
+// signal/field2des.py propagates them), out[d, b] = sum_j w[d, j]
+// F[nbr[d, j], b] @ OpT[j] for every b, in the same one launch.
+//
 // with OpT = [P_0^T .. P_{M-1}^T ; D_0^T .. D_{M-1}^T] (nj = 2M complex
 // (V, V) superoperators, c_k folded into D_k), nbr[d, j] the plus (j < M)
 // or minus (j >= M) neighbour of d or -1 when there is none, and w = 1 on
@@ -50,6 +55,17 @@
 //   deterministic. One launch, not a second one for the sums: the HEOM
 //   step loop is bound by the host, and a launch costs it more than the
 //   device time it would save (PERF.md).
+// - Batch: a block walks all B rows of its tile's edges, one batch row
+//   after another, with OpT[j] staged once (V <= 64: one pass) and
+//   reused B times; the partials are (nedges, B, V), a destination's
+//   edges still consecutive, so the count per destination and the block
+//   that sums stay as they are, and that block sums all B rows. At B = 1
+//   this is the unbatched kernel. At the field-2DES shape (680 ADOs of
+//   the n = 8 chain, V = 64, B = 256; 3,360 edges) one call is 28.2
+//   GFLOP, bound by the FP64 rate (0.42 ms at 67 TFLOP/s; the bytes,
+//   357 MB, take 0.107 ms); here on FP64 FMA (34 TFLOP/s) it cannot
+//   beat 0.83 ms. Putting the partials on the FP64 tensor cores is for
+//   a later change.
 // Any V works (ragged column tiles are masked). The kernel is bound by
 // latency, in three parts of similar size: the staging (a chain of
 // dependent loads, tile, source index, rows, before the copies), the
@@ -84,7 +100,8 @@ coupling_kernel(const typename Complex<T>::type* __restrict__ F,
                 const int* __restrict__ slot, const int* __restrict__ dst_ptr,
                 int* arrived,
                 typename Complex<T>::type* __restrict__ partial,
-                typename Complex<T>::type* __restrict__ out, int V) {
+                typename Complex<T>::type* __restrict__ out, int V,
+                int B) {
   using C = typename Complex<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* op = reinterpret_cast<C*>(smem_raw);             // [chunk][kCols]
@@ -103,9 +120,6 @@ coupling_kernel(const typename Complex<T>::type* __restrict__ F,
   const int nc = min(kCols, V - c0);
   const C* opj = OpT + static_cast<size_t>(j) * V * V;
 
-  T acc_r[kPer], acc_i[kPer];
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) acc_r[p] = acc_i[p] = T(0);
   // the tile's source rows (the weights are applied at the partials'
   // store) and the rows of its partials; each edge's destination and the
   // range of that destination's partials, for the sums at the end
@@ -123,51 +137,65 @@ coupling_kernel(const typename Complex<T>::type* __restrict__ F,
     stop[tid] = dst_ptr[d + 1];
   }
 
-  for (int a0 = 0; a0 < V; a0 += kChunk) {
-    const int na = min(kChunk, V - a0);
-    // OpT[j][a0 + a][c0 + b], zeros past column V
-    for (int e = tid; e < na * kCols; e += kThreads) {
-      const int a = e / kCols, b = e % kCols;
-      const bool ok = b < nc;
-      cp_async<sizeof(C)>(
-          op + e, ok ? opj + static_cast<size_t>(a0 + a) * V + c0 + b : opj,
-          ok);
-    }
-    // F[src][a0 + a] of the tile's edges, zeros past its last edge; the
-    // threads of edge group grp copy its kPer rows
+  // OpT[j] is staged once for all B rows when it fits one pass
+  const bool op_once = V <= kChunk;
+  const size_t BV = static_cast<size_t>(B) * V;
+  for (int bb = 0; bb < B; ++bb) {
+    T acc_r[kPer], acc_i[kPer];
 #pragma unroll
-    for (int p = 0; p < kPer; ++p)
-      for (int a = col; a < na; a += kCols) {
-        const bool ok = srow[p] >= 0;
-        cp_async<sizeof(C)>(
-            rows + (grp * kPer + p) * rows_ld + a,
-            ok ? F + static_cast<size_t>(srow[p]) * V + a0 + a : F, ok);
-      }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    // the rows of a warp are one edge group: their reads are broadcasts
+    for (int p = 0; p < kPer; ++p) acc_r[p] = acc_i[p] = T(0);
+    for (int a0 = 0; a0 < V; a0 += kChunk) {
+      const int na = min(kChunk, V - a0);
+      // OpT[j][a0 + a][c0 + b], zeros past column V
+      if (!op_once || bb == 0)
+        for (int e = tid; e < na * kCols; e += kThreads) {
+          const int a = e / kCols, b = e % kCols;
+          const bool ok = b < nc;
+          cp_async<sizeof(C)>(
+              op + e,
+              ok ? opj + static_cast<size_t>(a0 + a) * V + c0 + b : opj,
+              ok);
+        }
+      // F[src, bb][a0 + a] of the tile's edges, zeros past its last edge;
+      // the threads of edge group grp copy its kPer rows
+#pragma unroll
+      for (int p = 0; p < kPer; ++p)
+        for (int a = col; a < na; a += kCols) {
+          const bool ok = srow[p] >= 0;
+          cp_async<sizeof(C)>(
+              rows + (grp * kPer + p) * rows_ld + a,
+              ok ? F + static_cast<size_t>(srow[p]) * BV +
+                       static_cast<size_t>(bb) * V + a0 + a
+                 : F,
+              ok);
+        }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      // the rows of a warp are one edge group: their reads are broadcasts
 #pragma unroll 7
-    for (int a = 0; a < na; ++a) {
-      const C o = op[a * kCols + col];
+      for (int a = 0; a < na; ++a) {
+        const C o = op[a * kCols + col];
+#pragma unroll
+        for (int p = 0; p < kPer; ++p) {
+          const C f = rows[(grp * kPer + p) * rows_ld + a];
+          acc_r[p] += f.x * o.x - f.y * o.y;
+          acc_i[p] += f.x * o.y + f.y * o.x;
+        }
+      }
+      __syncthreads();
+    }
+
+    if (col < nc) {
 #pragma unroll
       for (int p = 0; p < kPer; ++p) {
-        const C f = rows[(grp * kPer + p) * rows_ld + a];
-        acc_r[p] += f.x * o.x - f.y * o.y;
-        acc_i[p] += f.x * o.y + f.y * o.x;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (col < nc) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int r = grp * kPer + p;
-      if (r < cnt) {
-        const T wr = w[e0 + r];
-        partial[static_cast<size_t>(prow[p]) * V + c0 + col] =
-            Complex<T>::make(wr * acc_r[p], wr * acc_i[p]);
+        const int r = grp * kPer + p;
+        if (r < cnt) {
+          const T wr = w[e0 + r];
+          partial[static_cast<size_t>(prow[p]) * BV +
+                  static_cast<size_t>(bb) * V + c0 + col] =
+              Complex<T>::make(wr * acc_r[p], wr * acc_i[p]);
+        }
       }
     }
   }
@@ -202,17 +230,20 @@ coupling_kernel(const typename Complex<T>::type* __restrict__ F,
     if (tid == 0) nact = __popc(m);
   }
   __syncthreads();
-  // a destination's partials are consecutive rows; kSumDepth of them are
-  // loaded at once (from L2, where the other blocks wrote them)
-  for (int idx = tid; idx < nact * V; idx += kThreads) {
-    const int r = act[idx / V], b = idx % V;
+  // a destination's partials are consecutive rows (of B x V each);
+  // kSumDepth of them are loaded at once (from L2, where the other blocks
+  // wrote them)
+  const long long nsum = static_cast<long long>(BV);
+  for (long long idx = tid; idx < nact * nsum; idx += kThreads) {
+    const int r = act[idx / nsum];
+    const size_t b = static_cast<size_t>(idx % nsum);
     T sr = T(0), si = T(0);
     for (int q = first[r]; q < stop[r]; q += kSumDepth) {
       C p[kSumDepth];
 #pragma unroll
       for (int u = 0; u < kSumDepth; ++u)
         p[u] = q + u < stop[r]
-                   ? __ldcg(partial + static_cast<size_t>(q + u) * V + b)
+                   ? __ldcg(partial + static_cast<size_t>(q + u) * BV + b)
                    : Complex<T>::make(T(0), T(0));
 #pragma unroll
       for (int u = 0; u < kSumDepth; ++u) {
@@ -222,29 +253,31 @@ coupling_kernel(const typename Complex<T>::type* __restrict__ F,
         }
       }
     }
-    out[static_cast<size_t>(dest[r]) * V + b] = Complex<T>::make(sr, si);
+    out[static_cast<size_t>(dest[r]) * BV + b] = Complex<T>::make(sr, si);
   }
 }
 
 // What a launch on a plan takes that does not change between calls, built
-// once per plan and V by ops/kernels.py::_coupling_launch_args (a ctypes
+// once per plan, V and B by ops/kernels.py::_coupling_launch_args (a ctypes
 // Structure with these fields in this order), so that a call passes five
 // arguments through ctypes and not eleven.
 struct PlanArgs {
   const void* w;      // (nedges,) real of F's precision: the edges' weights
   void* plan;         // the plan's int32 arrays, one after another
-  void* partial;      // (nedges, V) interleaved complex: the partials
+  void* partial;      // (nedges, B, V) interleaved complex: the partials
   int nado;
   int ntiles;
   int nedges;
   int V;
+  int B;              // hierarchies in the batch (1: F is (nado, V))
 };
 
 template <typename T>
 int launch(const void* F, const void* OpT, void* out, const PlanArgs* a,
            void* stream) {
   if (a == nullptr || a->nado <= 0 || a->ntiles <= 0 || a->nedges <= 0 ||
-      a->V <= 0)
+      a->V <= 0 || a->B <= 0 ||
+      static_cast<long long>(a->B) * a->V > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   using C = typename Complex<T>::type;
   const int V = a->V;
@@ -266,16 +299,16 @@ int launch(const void* F, const void* OpT, void* out, const PlanArgs* a,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const C*>(F), static_cast<const C*>(OpT), tiles, src,
       static_cast<const T*>(a->w), dst, slot, dst_ptr, arrived,
-      static_cast<C*>(a->partial), static_cast<C*>(out), V);
+      static_cast<C*>(a->partial), static_cast<C*>(out), V, a->B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Pointers are device pointers,
-// but for args, which points to a PlanArgs in host memory. F (nado, V),
-// OpT (nj, V, V), out (nado, V) and args->partial (nedges, V) are
-// interleaved complex. args->plan holds the int32 arrays of
+// but for args, which points to a PlanArgs in host memory. F (nado, B, V),
+// OpT (nj, V, V), out (nado, B, V) and args->partial (nedges, B, V) are
+// interleaved complex (B = args->B; (nado, V) when it is 1). args->plan holds the int32 arrays of
 // ops/kernels.py::CouplingPlan one after another: tiles (ntiles, 3) rows
 // (j, first edge, edge count); src, dst and slot (nedges,) of the edges
 // sorted by j, slot being the edge's row of partial; dst_ptr (nado + 1,),

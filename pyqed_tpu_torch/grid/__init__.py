@@ -11,3 +11,12 @@ from .ehrenfest import Ehrenfest
 from .fssh import FSSH, tully_i, tully_ii, tully_iii
 from .adt import adt_1d, adt_angle, ADT
 from .namd import NAMD, diabatic_to_adiabatic_1d
+from .scattering import LippmannSchwingerSolver, LippmannSchwinger2DSolver
+from .qtraj import QT, QTF, NAQT, lqf, ResultQT
+from .gwp import (GWP, WPD, overlap_real, kinetic_real, moment_real,
+                  GWPBasis, WPDN, WPD2, ThawedGaussian)
+from .smolyak import (SparseGrid, AdaptiveSparseGrid, SparseInterpolator,
+                      SGCT_LDR, combination_technique)
+from .nawpd import NAWPD, NAWPD2
+from .vmcg import VMCG, GWPMatrixElements
+from .nusol import NuSol, cheb_D2

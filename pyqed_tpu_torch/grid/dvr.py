@@ -328,9 +328,11 @@ class DVRN:
         return E[:num_eigs], U[:, :num_eigs]
 
     def apply_H(self, psi, Vg):
-        """H psi with psi of grid shape — per-dimension contractions."""
+        """H psi with psi of grid shape, or grid shape + trailing axes (a
+        block of columns at once) — per-dimension contractions."""
         psi = as_tensor(psi, device=self.device)
-        out = as_tensor(Vg, device=self.device) * psi
+        Vg = as_tensor(Vg, device=self.device)
+        out = Vg.reshape(Vg.shape + (1,) * (psi.dim() - self.ndim)) * psi
         for d in range(self.ndim):
             T = self._t(d).to(torch.promote_types(torch.float64, psi.dtype))
             out = out + torch.movedim(

@@ -20,3 +20,4 @@ from .shinmetiu2d import (ShinMetiu2D, ShinMetiu2DMagnetic,
                           ShinMetiu2InElectricField)
 from .phenol import Phenol
 from .pyrrole import Pyrrole, PyrroleCation
+from .lattice import FermiHubbard, BoseHubbard, jordan_wigner_ops

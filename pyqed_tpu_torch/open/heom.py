@@ -182,6 +182,9 @@ class HEOMSolver:
 
     def rhs_fn(self, dtype, kernel=None, edip=None):
         """The hierarchy RHS ``ados (nado, n, n) -> d ados/dt`` and nado.
+        Every kernel's closure also takes a batch of hierarchies, ados
+        (nado, B, n, n), the ADO axis outermost (``cuda``: one launch of
+        the coupling kernel for the whole batch).
 
         ``dtype`` is torch.complex128 or torch.complex64; ``kernel`` as in
         the class docstring (None: the solver's kernel, else automatic).
@@ -218,8 +221,8 @@ class HEOMSolver:
         def rhs_driven(ados, E):
             # reshape copies where a kernel's output is not contiguous
             # (rowcol), so the drive goes into the tensor returned
-            out = rhs(ados).reshape(nado, V)
-            out.addmm_(ados.reshape(nado, V), Cmu, alpha=E)
+            out = rhs(ados).reshape(-1, V)
+            out.addmm_(ados.reshape(-1, V), Cmu, alpha=E)
             return out.reshape(ados.shape)
 
         return rhs_driven, nado
@@ -245,12 +248,16 @@ class HEOMSolver:
         H_t = kn.to_tensor(H, dtype, dev)
 
         def rhs(ados):
-            padded = torch.cat([ados, ados.new_zeros((1, n, n))])
+            # ados (nado, n, n) or a batch (nado, B, n, n)
+            ones = (1,) * (ados.dim() - 3)
+            padded = torch.cat([ados, ados.new_zeros((1,) + ados.shape[1:])])
             out = -1j * (H_t @ ados - ados @ H_t)
-            out = out - damp[:, None, None] * ados
-            g = padded[all_idx]                       # (nado, 2M, n, n)
-            out = out - 1j * (torch.einsum("kab, Nkbc -> Nac", Q2, wl * g)
-                              - torch.einsum("Nkab, kbc -> Nac", wr * g, Q2))
+            out = out - damp.view((nado,) + ones + (1, 1)) * ados
+            g = padded[all_idx]                    # (nado, 2M, [B,] n, n)
+            wl_, wr_ = (x.view((nado, -1) + ones + (1, 1)) for x in (wl, wr))
+            out = out - 1j * (
+                torch.einsum("kab, Nk...bc -> N...ac", Q2, wl_ * g)
+                - torch.einsum("Nk...ab, kbc -> N...ac", wr_ * g, Q2))
             return out
 
         return rhs
@@ -273,10 +280,12 @@ class HEOMSolver:
             dev)[:, :, None]
 
         def rhs(ados):
-            flat = ados.reshape(nado, V)
-            padded = torch.cat([flat, flat.new_zeros((1, V))])
-            g = padded[all_idx] * wocc                 # (nado, 2M, V)
-            return kn.heom_rhs_dot(B0, Bk, damp, flat, g).reshape(nado, n, n)
+            # ados (nado, n, n) or a batch (nado, B, n, n)
+            flat = ados.reshape(ados.shape[:-2] + (V,))
+            padded = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])])
+            g = padded[all_idx] * wocc.view(
+                (nado, -1) + (1,) * (flat.dim() - 1))  # (nado, 2M, [B,] V)
+            return kn.heom_rhs_dot(B0, Bk, damp, flat, g).reshape(ados.shape)
 
         return rhs
 

@@ -1,0 +1,1 @@
+from .davidson import davidson, block_davidson

@@ -57,7 +57,7 @@ SIGNATURES = {
 class CouplingPlanArgs(ctypes.Structure):
     """``PlanArgs`` of ``csrc/heom_coupling.cu``, field for field."""
     _fields_ = [("w", _P), ("plan", _P), ("partial", _P), ("nado", _I),
-                ("ntiles", _I), ("nedges", _I), ("V", _I)]
+                ("ntiles", _I), ("nedges", _I), ("V", _I), ("B", _I)]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -204,10 +204,11 @@ def heom_coupling_operands(H, Q, c, keys, plus_idx, minus_idx):
 def heom_rhs_dot(B0, Bk, damp, flat, g):
     """Stacked-superoperator RHS on the gathered neighbour stack:
     out[N, a] = Σ_b B0[a, b] flat[N, b] + Σ_{k,b} Bk[a, k, b] g[N, k, b]
-    − damp[N] flat[N, a]."""
-    out = torch.einsum("Nb, ab -> Na", flat, B0)
-    out = out + torch.einsum("Nkb, akb -> Na", g, Bk)
-    return out - damp[:, None] * flat
+    − damp[N] flat[N, a]. A batch axis may follow N: flat (N, B, V), g
+    (N, K, B, V)."""
+    out = torch.einsum("N...b, ab -> N...a", flat, B0)
+    out = out + torch.einsum("Nk...b, akb -> N...a", g, Bk)
+    return out - damp.view((-1,) + (1,) * (flat.dim() - 1)) * flat
 
 
 def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
@@ -221,8 +222,9 @@ def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
         out_N += −i Σ_m [ρ_{N+m}[s, :] + n_m c_m ρ_{N−m}[s, :]]   at row s
         out_N += +i Σ_m [ρ_{N+m}[:, s] + n_m c_m* ρ_{N−m}[:, s]]  at col s
 
-    plus −i[H, ρ_N] − damp_N ρ_N. Returns ``rhs(ados (nado, n, n))``,
-    its operands on ``device`` (the card when None; raises without one).
+    plus −i[H, ρ_N] − damp_N ρ_N. Returns ``rhs(ados)`` for ados
+    (nado, n, n) or a batch (nado, B, n, n), its operands on ``device``
+    (the card when None; raises without one).
     """
     device = resolve_device(device)
     sites = heom_q_projector_sites(Q)
@@ -255,19 +257,26 @@ def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
         nu, np.complex128), dtype, device)
 
     def rhs(ados):
-        padded = torch.cat([ados, ados.new_zeros((1, n, n))])
-        rows = padded[:, s_t, :].reshape((nado + 1) * nq, n)
-        cols = padded[:, :, s_t].transpose(1, 2).reshape((nado + 1) * nq, n)
-        gp_r = rows[idx_p].reshape(nado, M, n)
-        gm_r = rows[idx_m].reshape(nado, M, n)
-        gp_c = cols[idx_p].reshape(nado, M, n)
-        gm_c = cols[idx_m].reshape(nado, M, n)
-        row_acc = torch.einsum("Nmx, mq -> Nqx", gp_r + w_row * gm_r, G_t)
-        col_acc = torch.einsum("Nmx, mq -> Nqx", gp_c + w_col * gm_c, G_t)
-        out = -1j * (torch.einsum("aq, Nqx -> Nax", E_t, row_acc)
-                     - torch.einsum("xq, Nqa -> Nax", E_t, col_acc))
+        batch = tuple(ados.shape[1:-2])         # () or (B,)
+        ones = (1,) * len(batch)
+        padded = torch.cat([ados, ados.new_zeros((1,) + ados.shape[1:])])
+        # rows/columns s of every ADO, (nado + 1)·nq of them, batch inside
+        rows = padded[..., s_t, :].movedim(-2, 1).reshape(
+            ((nado + 1) * nq,) + batch + (n,))
+        cols = padded[..., :, s_t].movedim(-1, 1).reshape(
+            ((nado + 1) * nq,) + batch + (n,))
+        gp_r = rows[idx_p].reshape((nado, M) + batch + (n,))
+        gm_r = rows[idx_m].reshape((nado, M) + batch + (n,))
+        gp_c = cols[idx_p].reshape((nado, M) + batch + (n,))
+        gm_c = cols[idx_m].reshape((nado, M) + batch + (n,))
+        wr = w_row.view((nado, M) + ones + (1,))
+        wc = w_col.view((nado, M) + ones + (1,))
+        row_acc = torch.einsum("Nm...x, mq -> Nq...x", gp_r + wr * gm_r, G_t)
+        col_acc = torch.einsum("Nm...x, mq -> Nq...x", gp_c + wc * gm_c, G_t)
+        out = -1j * (torch.einsum("aq, Nq...x -> N...ax", E_t, row_acc)
+                     - torch.einsum("xq, Nq...a -> N...ax", E_t, col_acc))
         out = out - 1j * (H_t @ ados - ados @ H_t)
-        return out - damp[:, None, None] * ados
+        return out - damp.view((nado,) + ones + (1, 1)) * ados
 
     return rhs
 
@@ -283,8 +292,9 @@ def heom_rhs_levels_xla_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     transforms first, Z_k = F_{l−1} @ D_kᵀ, then Σ_k S_k @ Z_k.
 
     Unlike the JAX form, which keeps only Re(keys @ nu), complex bath
-    rates enter the damping in full. Returns ``rhs(ados (nado, n, n))``,
-    its operands on ``device`` (the card when None; raises without one).
+    rates enter the damping in full. Returns ``rhs(ados)`` for ados
+    (nado, n, n) or a batch (nado, B, n, n), its operands on ``device``
+    (the card when None; raises without one).
     """
     device = resolve_device(device)
     blocks = heom_level_blocks(H, Q, c, keys, plus_idx, minus_idx)
@@ -303,21 +313,23 @@ def heom_rhs_levels_xla_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     Smb = [to_tensor(S, dtype, device) for S in blocks["Sminus"]]
 
     def rhs(ados):
-        flat = ados.reshape(nado, V)
-        out = flat @ C - damp[:, None] * flat
+        batch = tuple(ados.shape[1:-2])         # () or (B,)
+        flat = ados.reshape((nado,) + batch + (V,))
+        out = flat @ C - damp.view((nado,) + (1,) * (len(batch) + 1)) * flat
         plus = []
         for l in range(L):                  # dest l, src l+1
             src = flat[offs[l + 1]:offs[l + 1] + sizes[l + 1]]
-            y = (Spf[l] @ src).reshape(M, sizes[l], V)
-            plus.append(torch.einsum("kdv, kvw -> dw", y, Pt))
-        plus.append(flat.new_zeros((sizes[L], V)))
-        minus = [flat.new_zeros((sizes[0], V))]
+            y = (Spf[l] @ src.reshape(sizes[l + 1], -1)).reshape(
+                (M, sizes[l]) + batch + (V,))
+            plus.append(torch.einsum("kd...v, kvw -> d...w", y, Pt))
+        plus.append(flat.new_zeros((sizes[L],) + batch + (V,)))
+        minus = [flat.new_zeros((sizes[0],) + batch + (V,))]
         for l in range(1, L + 1):           # dest l, src l-1
             src = flat[offs[l - 1]:offs[l - 1] + sizes[l - 1]]
-            z = torch.einsum("sv, kvw -> ksw", src, Dt)
-            minus.append(torch.einsum("kds, ksw -> dw", Smb[l - 1], z))
+            z = torch.einsum("s...v, kvw -> ks...w", src, Dt)
+            minus.append(torch.einsum("kds, ks...w -> d...w", Smb[l - 1], z))
         out = out + torch.cat(plus) + torch.cat(minus)
-        return out.reshape(nado, n, n)
+        return out.reshape(ados.shape)
 
     return rhs
 
@@ -348,10 +360,12 @@ def heom_coupling_ref(F, nbr, w, OpT):
     """Plain version of :func:`heom_coupling`: gather, weight, contract.
 
     out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j]; a −1 in ``nbr`` picks the
-    zero row appended to F."""
-    padded = torch.cat([F, F.new_zeros((1, F.shape[1]))])
-    g = padded[nbr.long()] * w[..., None]           # (nado, nj, V)
-    return torch.einsum("dja, jab -> db", g, OpT)
+    zero row appended to F. F (nado, V), or (nado, B, V) for a batch:
+    out[d, b] = Σ_j w[d, j] F[nbr[d, j], b] @ OpT[j]."""
+    padded = torch.cat([F, F.new_zeros((1,) + F.shape[1:])])
+    wb = w.view(w.shape + (1,) * (F.dim() - 1))
+    g = padded[nbr.long()] * wb                   # (nado, nj, [B,] V)
+    return torch.einsum("dj...a, jab -> d...b", g, OpT)
 
 
 # edges per tile of the kernel (kRows in csrc/heom_coupling.cu)
@@ -370,8 +384,8 @@ class CouplingPlan:
     unchanged. The int32 arrays are views of one buffer, ``ints``, which
     the kernel takes as one pointer. ``arrived`` is the kernel's
     per-destination count of finished edges, zero between calls, and
-    ``launch_args`` keeps, for each V, what a launch takes that does not
-    change between calls, with the partials buffer: a plan serves one
+    ``launch_args`` keeps, for each (V, B), what a launch takes that does
+    not change between calls, with the partials buffer: a plan serves one
     stream at a time."""
     operands: tuple         # (nbr, w) as given to heom_coupling_plan
     versions: tuple         # their _version counters at the build
@@ -472,13 +486,13 @@ def _check_operands(F, OpT, nbr, w):
     if w.dtype != rdt:
         raise TypeError(f"heom_coupling: w must be {rdt}, got {w.dtype}")
     nado, nj = nbr.shape
-    if (F.dim() != 2 or F.shape[0] != nado
-            or OpT.shape != (nj, F.shape[1], F.shape[1])):
+    if (F.dim() not in (2, 3) or F.shape[0] != nado
+            or OpT.shape != (nj, F.shape[-1], F.shape[-1])):
         raise ValueError(
             f"heom_coupling: shapes F {tuple(F.shape)}, nbr "
             f"{tuple(nbr.shape)}, w {tuple(w.shape)}, OpT "
-            f"{tuple(OpT.shape)} do not agree: expected F (nado, V), nbr "
-            "and w (nado, nj), OpT (nj, V, V)")
+            f"{tuple(OpT.shape)} do not agree: expected F (nado, V) or "
+            "(nado, B, V), nbr and w (nado, nj), OpT (nj, V, V)")
     # nbr is on the CPU or on a card (checked with the graph)
     if not (F.is_cuda and OpT.is_cuda
             and F.get_device() == OpT.get_device() == nbr.get_device()
@@ -489,20 +503,20 @@ def _check_operands(F, OpT, nbr, w):
         raise ValueError("heom_coupling: F and OpT must be contiguous")
 
 
-def _coupling_launch_args(plan, F):
-    """What a launch on a plan at F's V and dtype takes that does not
-    change between calls, made once: the C entry point, the partials
-    buffer (allocated here with ``torch.empty``) and the plan's pointers
-    and sizes as one ``PlanArgs`` struct in host memory, with its address.
-    The plan keeps all four."""
+def _coupling_launch_args(plan, F, V, B):
+    """What a launch on a plan at F's dtype, V and batch B takes that does
+    not change between calls, made once: the C entry point, the partials
+    buffer ((nedges, B, V), allocated here with ``torch.empty``) and the
+    plan's pointers and sizes as one ``PlanArgs`` struct in host memory,
+    with its address. The plan keeps all four."""
     from . import _cuda_lib
     lib = _cuda_lib.load("heom_coupling").lib
     fn = (lib.heom_coupling_c128 if F.dtype == torch.complex128
           else lib.heom_coupling_c64)
-    partial = F.new_empty((plan.nedges, F.shape[1]))
+    partial = F.new_empty((plan.nedges, B, V))
     args = _cuda_lib.CouplingPlanArgs(
         plan.w.data_ptr(), plan.ints.data_ptr(), partial.data_ptr(),
-        F.shape[0], plan.tiles.shape[0], plan.nedges, F.shape[1])
+        F.shape[0], plan.tiles.shape[0], plan.nedges, V, B)
     return fn, ctypes.addressof(args), args, partial
 
 
@@ -528,7 +542,8 @@ def _launch_on(index, launch):
 
 
 def heom_coupling(F, nbr, w, OpT, plan=None):
-    """HEOM coupling term, out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j].
+    """HEOM coupling term, out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j]
+    (for a batch, out[d, b] = Σ_j w[d, j] F[nbr[d, j], b] @ OpT[j]).
 
     Replaces the level-blocked Pallas kernel of the JAX package
     (``pyqed_tpu/ops/pallas_kernels.py:681-769``). That kernel multiplies
@@ -544,18 +559,21 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
     its partials in a fixed order (the design notes are in the source, the
     measured times in PERF.md).
 
-    F (nado, V) complex128/complex64, nbr (nado, nj) int32 (−1: no
-    neighbour), w (nado, nj) real of F's precision, OpT (nj, V, V) of F's
-    dtype, all contiguous and on one device. ``plan``, from
+    F (nado, V) complex128/complex64, or (nado, B, V) for B hierarchies
+    that share the graph and the operators (one launch for the whole
+    batch: a block walks all B rows of its edges with OpT[j] staged
+    once), nbr (nado, nj) int32 (−1: no neighbour), w (nado, nj) real of
+    F's precision, OpT (nj, V, V) of F's dtype, all contiguous and on one
+    device. ``plan``, from
     :func:`heom_coupling_plan` on these very nbr and w tensors (the
     wrapper raises for any other, or for these changed in place since),
     is built once per right-hand side by :func:`heom_rhs_coupling_factory`:
     nbr and w are checked when it is built, F and OpT on every call.
     Without a plan nbr and w are checked here, and on CUDA a plan is built
     from them on the host, which copies them back. The partials buffer
-    is allocated with ``torch.empty`` at a plan's first launch and kept
-    with it. On the CPU this is :func:`heom_coupling_ref`; on CUDA it
-    launches the kernel (counted in ``heom_coupling.launches``, one per
+    is allocated with ``torch.empty`` at a plan's first launch at each
+    (V, B) and kept with it. On the CPU this is :func:`heom_coupling_ref`;
+    on CUDA it launches the kernel (counted in ``heom_coupling.launches``, one per
     right-hand side, so an RK4 run counts 4 per step) or raises; a
     hierarchy without edges (one ADO) launches nothing and returns zeros.
     """
@@ -571,11 +589,12 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
     if plan is None:
         plan = heom_coupling_plan(nbr, w)
     out = torch.zeros_like(F) if plan.edgeless else torch.empty_like(F)
-    if plan.nedges == 0:
+    if plan.nedges == 0 or F.numel() == 0:
         return out
-    args = plan.launch_args.get(F.shape[1])
+    key = (F.shape[-1], F.shape[1] if F.dim() == 3 else 1)
+    args = plan.launch_args.get(key)
     if args is None:
-        args = plan.launch_args[F.shape[1]] = _coupling_launch_args(plan, F)
+        args = plan.launch_args[key] = _coupling_launch_args(plan, F, *key)
     fn, addr, _, _ = args
     err = _launch_on(F.get_device(), lambda stream: fn(
         F.data_ptr(), OpT.data_ptr(), out.data_ptr(), addr, stream))
@@ -602,9 +621,12 @@ def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     """HEOM RHS through :func:`heom_coupling` (kernel name ``cuda``; the
     counterpart of the JAX package's ``heom_rhs_levels_factory``). The
     local term flat @ C − damp·flat stays a torch matmul, outside the
-    kernel as it was outside the Pallas call. Returns
-    ``rhs(ados (nado, n, n))``, its operands on ``device`` (the card when
-    None; raises without one)."""
+    kernel as it was outside the Pallas call. Returns ``rhs(ados)`` for
+    ados (nado, n, n), or a batch (nado, B, n, n): one kernel launch for
+    the batch (F (nado, B, V), the ADO axis outermost, so a gathered
+    neighbour is one contiguous (B, V) block) and one (nado·B, V) @ (V, V)
+    product for the local term. Its operands lie on ``device`` (the card
+    when None; raises without one)."""
     device = resolve_device(device)
     keys = np.asarray(keys)
     nado = keys.shape[0]
@@ -622,11 +644,17 @@ def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     damp = to_tensor((keys @ np.asarray(nu))[:, None], dtype, device)
 
     def rhs(ados):
-        flat = ados.reshape(nado, V)
+        if ados.dim() == 3:
+            flat = ados.reshape(nado, V)
+            out = heom_coupling(flat, nbr_t, w_t, OpT_t, plan=plan)
+            out.addmm_(flat, C_t)
+            out.addcmul_(damp, flat, value=-1)
+            return out.reshape(nado, n, n)
+        flat = ados.reshape(nado, -1, V)
         out = heom_coupling(flat, nbr_t, w_t, OpT_t, plan=plan)
-        out.addmm_(flat, C_t)
-        out.addcmul_(damp, flat, value=-1)
-        return out.reshape(nado, n, n)
+        out.view(-1, V).addmm_(flat.view(-1, V), C_t)
+        out.addcmul_(damp[:, :, None], flat, value=-1)
+        return out.reshape(ados.shape)
 
     return rhs
 

@@ -1,7 +1,8 @@
 """Nonlinear spectroscopy signals (PyTorch): the sum-over-states module
 ``sos``, the time-domain 2DES module ``tdes`` and pump-probe with the
 third-order responses (``pump_probe``), with the names of
-``pyqed_tpu.signal``. ``field2des`` is not yet ported."""
+``pyqed_tpu.signal``, and the explicit-field phase-cycled 2DES of
+``field2des``."""
 from .sos import (
     absorption, linear_absorption, TPA, TPA2D, TPA2D_time_order,
     ESA, GSB, SE, _photon_echo, photon_echo, photon_echo_t3,
@@ -9,6 +10,7 @@ from .sos import (
     polarizability,
 )
 from . import tdes
+from .field2des import field_2des_rephasing, rephasing_spectrum
 from .pump_probe import (TransientAbsorption, chi1, chi3,
                          response1_freq, response2_freq,
                          response3_freq, response4_freq,
