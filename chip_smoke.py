@@ -12,15 +12,18 @@ nonzero:
 2. build: compiles csrc/heom_coupling.cu, csrc/spo.cu and
    csrc/liouvillian.cu with nvcc, one process each, started together,
    prints their -Xptxas -v reports, and counts the DMMA (FP64 tensor-core)
-   instructions in the commutator library's SASS (cuobjdump), which must
-   not be zero;
+   instructions in the SASS (cuobjdump) of the commutator library and of
+   the HEOM coupling library (its destination-major batched kernel),
+   which must not be zero;
 3. kernel parity, each CUDA kernel against its plain PyTorch version,
    complex128 (rel <= 1e-12) and complex64 (rel <= 1e-5):
    - the HEOM coupling at the FMO flagship shape (680 ADOs, V = 49, nj =
      28), at the n = 8 exciton-chain shape (680 ADOs, V = 64) and on the
      FMO nexp=2 hierarchy (2,024 ADOs, nj = 42); on the first two also
-     with a batch of B = 1, 7 and 256 hierarchies (F (nado, B, V), one
-     launch for the batch);
+     with a batch of B = 1, 2, 7, 33 and 256 hierarchies (F (nado, B, V),
+     one launch for the batch), through both designs, edge-major and
+     destination-major, at every B (the latter allocates no partials
+     buffer);
    - the SPO phase multiply and potential apply at the 256^3 x 2-state
      chip shape (states-first, the layout of the FFT on the main path)
      and at a ragged 37 x 41 x 29 x 3-state shape in both layouts, and
@@ -130,7 +133,8 @@ nonzero:
      through kernel='cuda' on the n = 8 chain (680 ADOs, V = 64) with 4 x 4
      phases x 16 t1 delays = 256 propagations as one batched hierarchy,
      701 RK4 steps (launch count exactly 4 x 701: one launch per
-     right-hand side for the whole batch; profiled by kernel), the same
+     right-hand side for the whole batch, every one by the
+     destination-major kernel; profiled by kernel; peak memory), the same
      run with E3 = 0 (phase cycling cancels it, <= 1e-10 of max|P3|),
      kernel='cuda' against 'einsum' on the card at B = 32 (<= 1e-10), and
      examples/field_2des.py's two-level system card vs CPU (<= 1e-10) with
@@ -169,7 +173,9 @@ Timing also covers the generic SPO potential branch at 2^20 x 10,
 1,024 x 10 and 4,096 x 200 against torch.matmul and its bound, the
 nonadiabatic runs' steps/s, aten ops and device time per step and busy
 share, and the batched HEOM coupling at the field-2DES shape (B = 256)
-against its plain version and its bound.
+against its plain version and its bound, with both designs at B = 1, 2,
+7, 16, 32 and 256 (complex128 and complex64), which sets the batch from
+which the wrapper takes the destination-major kernel.
 
 The line before the last is a JSON summary of the kernels (the generic
 SPO branch as ``spo_potential_generic``, timed at the main path's
@@ -186,8 +192,10 @@ printing any result.
 compares the HEOM main path of the package in another checkout PARENT
 (for example the parent commit, unpacked with ``git archive <commit>
 pyqed_tpu_torch | tar -x -C build/parent``) with this one's in one
-process: run() steps/s in PAIRS alternating pairs (12 by default) and
-the right-hand side's time per call (:func:`ab_main`).
+process: run() steps/s in PAIRS alternating pairs (12 by default), the
+right-hand side's time per call, and the coupling per call, unbatched
+at the flagship and batched at the field-2DES shape (chain8, B = 256)
+(:func:`ab_main`).
 """
 import glob
 import json
@@ -271,6 +279,13 @@ def kernel_wrappers():
 def reset_counts():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["heom_coupling"].batched_launches = 0
+
+
+def batched_launches():
+    """The destination-major coupling kernel's launches (a part of
+    heom_coupling's, not in :func:`read_counts`)."""
+    return kernel_wrappers()["heom_coupling"].batched_launches
 
 
 def read_counts():
@@ -309,13 +324,16 @@ def phase_build():
         for line in b.log.splitlines():
             if line.strip():
                 log(f"[build] {line.strip()}")
-    lib = built[names.index("liouvillian")].path
-    ops = re.findall(r"\bDMMA[.\w]*", sass_of(lib))
-    log(f"[build] {lib.name}: {len(ops)} DMMA instructions in its SASS "
-        f"({', '.join(sorted(set(ops)))}): the complex128 commutator runs "
-        "on the FP64 tensor cores")
-    if not ops:
-        raise AssertionError(f"no DMMA instruction in {lib}")
+    for name, what in (("liouvillian", "the complex128 commutator"),
+                       ("heom_coupling", "the batched complex128 coupling "
+                        "(destination-major)")):
+        lib = built[names.index(name)].path
+        ops = re.findall(r"\bDMMA[.\w]*", sass_of(lib))
+        log(f"[build] {lib.name}: {len(ops)} DMMA instructions in its SASS "
+            f"({', '.join(sorted(set(ops)))}): {what} runs on the FP64 "
+            "tensor cores")
+        if not ops:
+            raise AssertionError(f"no DMMA instruction in {lib}")
 
 
 def sass_of(path):
@@ -412,7 +430,9 @@ def check_close(label, out, ref, tol):
 def phase_parity(shapes):
     """The coupling kernel against its plain version on every hierarchy,
     unbatched, and with a batch of B hierarchies (F (nado, B, V)) at
-    each B of PARITY_BATCHES on the flagship and chain shapes."""
+    each B of PARITY_BATCHES on the flagship and chain shapes, through
+    both designs (the wrapper picks one by B; the destination-major one
+    keeps no partials buffer)."""
     from pyqed_tpu_torch.ops import kernels as kn
     errs = {}
     for name, sol in shapes.items():
@@ -428,11 +448,28 @@ def phase_parity(shapes):
             for B in PARITY_BATCHES:
                 F, nbr, w, OpT = batched_operands(sol, dtype, B)
                 plan = kn.heom_coupling_plan(nbr, w)
-                out = kn.heom_coupling(F, nbr, w, OpT, plan=plan)
                 ref = kn.heom_coupling_ref(F, nbr, w, OpT)
+                for batched in (False, True):
+                    out = kn._coupling_launch(F, OpT, plan, batched)
+                    design = ("destination-major" if batched
+                              else "edge-major")
+                    errs[(name, dtype, B, batched)] = check_close(
+                        f"heom_coupling batched {name} nado={F.shape[0]} "
+                        f"B={B} V={F.shape[-1]} {str(dtype)[6:]} {design}",
+                        out, ref, tol)
+                partial = plan.launch_args[(F.shape[-1], B, True)][3]
+                if partial is not None:
+                    raise AssertionError("the destination-major launch "
+                                         "keeps a partials buffer")
+                # the wrapper takes the design its threshold names
+                reset_counts()
+                out = kn.heom_coupling(F, nbr, w, OpT, plan=plan)
+                if batched_launches() != int(kn.coupling_batched(F)):
+                    raise AssertionError(f"heom_coupling at B = {B} took the "
+                                         "other design")
                 errs[(name, dtype, B)] = check_close(
-                    f"heom_coupling batched {name} nado={F.shape[0]} B={B} "
-                    f"V={F.shape[-1]} {str(dtype)[6:]}", out, ref, tol)
+                    f"heom_coupling batched {name} B={B} {str(dtype)[6:]} "
+                    "through the wrapper", out, ref, tol)
                 del out, ref, F
     return errs
 
@@ -531,6 +568,9 @@ def checked_run(m, sol, nt, label):
                   "spo_potential": 0, "liouvillian_commutator": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected "
                              f"heom_coupling {4 * nt} and no other")
+    if batched_launches() != 0:
+        raise AssertionError(f"{label}: the unbatched run launched the "
+                             "destination-major kernel")
     if not trace_err <= 1e-10:
         raise AssertionError(f"{label}: trace error {trace_err:.3e}")
     if not diff <= 1e-10:
@@ -3208,7 +3248,8 @@ F2D_OMEGA = 1.0
 F2D_CHECK_NT1 = 2             # kernel='cuda' vs 'einsum' on the card, B = 32
 F2D_TLS_NT1 = 24              # examples/field_2des.py: nt1 24, nt3 512
 F2D_TLS_NT3 = 512
-PARITY_BATCHES = (1, 7, 256)
+PARITY_BATCHES = (1, 2, 7, 33, 256)
+F2D_DESIGN_BATCHES = (1, 2, 7, 16, 32, 256)   # both designs timed
 F2D_TIME_B = 256              # the batched coupling's kernels entry
 
 
@@ -3265,6 +3306,12 @@ def phase_field2des(card):
     wall_prof = time.perf_counter() - t0
     counts = read_counts()
     expect_only(counts, "heom_coupling", 4 * nt_total, "field 2DES")
+    dest_major = batched_launches()
+    if dest_major != 4 * nt_total:
+        raise AssertionError(f"field 2DES: {dest_major} launches of the "
+                             f"destination-major kernel, expected "
+                             f"{4 * nt_total}")
+    peak_prof = torch.cuda.max_memory_allocated() / 2 ** 30
     rows = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -3279,11 +3326,18 @@ def phase_field2des(card):
     if not finite(P3) or P3.abs().max().item() <= 1e-8:
         raise AssertionError("field 2DES: P3 not finite or empty")
     # the same run unprofiled, without the third pulse
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     reset_counts()
     (P30, _, _), wall = timed(lambda: f2des_run(
         sol, rho0, mu, F2D_NT1, amps=(F2D_AMP, F2D_AMP, 0.0)))
     expect_only(read_counts(), "heom_coupling", 4 * nt_total,
                 "field 2DES E3 = 0")
+    if batched_launches() != 4 * nt_total:
+        raise AssertionError("field 2DES E3 = 0: not every launch was the "
+                             "destination-major kernel's")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     out["e3_zero_cancels"] = gate(
         "field2des", "E3 = 0 run, max|P3| over the full run's",
         (P30.abs().max() / P3.abs().max()).item(), 1e-10)
@@ -3292,19 +3346,23 @@ def phase_field2des(card):
     log(f"[field2des] n = {sol.n} chain ({nado} ADOs, V = {sol.n ** 2}), "
         f"B = {B}, {nt_total} "
         f"RK4 steps: {wall:.2f} s per run unprofiled ({wall_prof:.2f} s "
-        f"profiled), {1e3 * wall / nt_total:.2f} ms per step; device "
-        f"{dev_step / 1e3:.3f} ms per step, busy share {busy:.3f}; peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"launches {counts['heom_coupling']} = 4 x {nt_total} ({card})")
+        f"profiled), {1e3 * wall / nt_total:.2f} ms per step; peak memory "
+        f"{peak:.3f} GiB unprofiled ({peak - base:.3f} GiB above the "
+        f"{base:.3f} held before it; {peak_prof:.3f} GiB profiled); device "
+        f"{dev_step / 1e3:.3f} ms per step, busy share {busy:.3f}; "
+        f"launches {counts['heom_coupling']} = 4 x {nt_total}, all "
+        f"destination-major ({card})")
     for us_, count, key in rows[:8]:
         log(f"[field2des]   {us_:9.1f} us per step, x{count:<5.2f} "
             f"{key[:80]}")
     out.update(B=B, nt_total=nt_total, launches=counts["heom_coupling"],
+               dest_major_launches=dest_major,
                s_per_run=wall, ms_per_step=1e3 * wall / nt_total,
                device_ms_per_step=dev_step / 1e3, busy=busy,
                device_by_kernel_us_per_step={r[2][:60]: r[0]
                                              for r in rows[:8]},
-               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+               peak_gib=peak, peak_above_start_gib=peak - base,
+               peak_profiled_gib=peak_prof)
     del P30
     # kernel='cuda' against 'einsum' on the card, B = 32
     P = {}
@@ -3351,10 +3409,14 @@ def phase_field2des(card):
 
 def batched_coupling_timing(card):
     """The batched coupling at the field-2DES shape (chain8, B =
-    F2D_TIME_B): kernel and plain version by CUDA events in turns, and
-    the bound."""
+    F2D_TIME_B, complex128) through the wrapper and its plain version by
+    CUDA events in turns, with the bound and the rate; then both designs
+    at each B of F2D_DESIGN_BATCHES, complex128 and complex64, in turns
+    (edge-major, destination-major, destination-major, edge-major), from
+    which COUPLING_BATCH_MIN was chosen."""
     from pyqed_tpu_torch.ops import kernels as kn
-    args = batched_operands(chain_solver(), torch.complex128, F2D_TIME_B)
+    sol = chain_solver()
+    args = batched_operands(sol, torch.complex128, F2D_TIME_B)
     plan = kn.heom_coupling_plan(args[1], args[2])
     fns = {"plain": kn.heom_coupling_ref,
            "kernel": lambda *a: kn.heom_coupling(*a, plan=plan)}
@@ -3362,12 +3424,39 @@ def batched_coupling_timing(card):
     for which in ("plain", "kernel", "kernel", "plain"):
         t[which].append(event_ms(fns[which], args, iters=10, warmup=2))
     b = coupling_bound(*args)
+    edges = int((args[1] >= 0).sum().item())
+    flops = 8 * args[0].shape[-1] ** 2 * edges * F2D_TIME_B
+    ms = min(t["kernel"])
     log(f"[time] heom_coupling batched chain8 B = {F2D_TIME_B} complex128: "
-        "kernel " + " / ".join(f"{x:.3f}" for x in t["kernel"]) + " ms, "
+        "kernel " + " / ".join(f"{x:.4f}" for x in t["kernel"]) + " ms, "
         "plain " + " / ".join(f"{x:.3f}" for x in t["plain"]) + f" ms, "
-        f"bound {b[0]:.3f} ms ({b[1]}), {b[0] / min(t['kernel']):.2f} of it "
-        f"({card})")
-    return dict(ms=min(t["kernel"]), plain_ms=min(t["plain"]), bound=b)
+        f"bound {b[0]:.3f} ms ({b[1]}), {b[0] / ms:.3f} of it; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s ({card})")
+    del args
+    by_batch = {}
+    for dtype in (torch.complex128, torch.complex64):
+        rows = by_batch[str(dtype)[6:]] = {}
+        for B in F2D_DESIGN_BATCHES:
+            F, nbr, w, OpT = batched_operands(sol, dtype, B)
+            bplan = kn.heom_coupling_plan(nbr, w)
+            tb = {False: [], True: []}
+            for batched in (False, True, True, False):
+                tb[batched].append(event_ms(
+                    lambda: kn._coupling_launch(F, OpT, bplan, batched), (),
+                    iters=10 if B > 64 else 50, warmup=3))
+            rows[B] = {"edge_major_ms": min(tb[False]),
+                       "dest_major_ms": min(tb[True])}
+            log(f"[time] heom_coupling chain8 {str(dtype)[6:]} B = {B}: "
+                f"edge-major {us(tb[False], '.1f')} us, destination-major "
+                f"{us(tb[True], '.1f')} us ({card})")
+            del F
+        faster = [B for B, r in rows.items()
+                  if r["dest_major_ms"] < r["edge_major_ms"]]
+        log(f"[time] {str(dtype)[6:]}: destination-major faster at B = "
+            f"{faster}; the wrapper takes it from B = "
+            f"{kn.COUPLING_BATCH_MIN[dtype]}")
+    return dict(ms=ms, plain_ms=min(t["plain"]), bound=b,
+                tflops=flops / ms / 1e9, by_batch=by_batch)
 
 
 GR_WPDN_N = 20                # WPDN: 20 x 20 Gaussians (400), nquad 24
@@ -3720,8 +3809,10 @@ def phase_grid_rest(card):
 
 
 def main():
+    t_start = time.perf_counter()
     card = phase_environment()
     import pyqed_tpu_torch  # noqa: F401  (fails outside the repository)
+    from pyqed_tpu_torch.ops import kernels as kn
     phase_build()
     from pyqed_tpu_torch import FMO
     shapes = {"fmo": FMO().heom(**FLAGSHIP, device=DEVICE),
@@ -3815,8 +3906,8 @@ def main():
         "route": "cuda",
         "source": "pyqed_tpu_torch/csrc/heom_coupling.cu",
         "replaces": "pyqed_tpu/ops/pallas_kernels.py:681",
-        "launches": slices["field2des"]["launches"],
-        "max_abs_err": errs[("chain8", torch.complex128, F2D_TIME_B)],
+        "launches": slices["field2des"]["dest_major_launches"],
+        "max_abs_err": errs[("chain8", torch.complex128, F2D_TIME_B, True)],
         "ms": f2d_time["ms"],
         "plain_ms": f2d_time["plain_ms"],
         "bound_ms": f2d_time["bound"][0],
@@ -3824,6 +3915,12 @@ def main():
         "library_ms": None,
         "shape": {"hierarchy": "chain8", "nado": 680, "B": F2D_TIME_B,
                   "V": 64},
+        "design": "destination-major, DMMA",
+        "tflops": f2d_time["tflops"],
+        "bound_share": f2d_time["bound"][0] / f2d_time["ms"],
+        "batch_min": {str(k)[6:]: v
+                      for k, v in kn.COUPLING_BATCH_MIN.items()},
+        "ms_by_batch": f2d_time["by_batch"],
     })
     n_big = 2 * LB_BIG_NVIB
     t = lb_times[(n_big, torch.complex128)]
@@ -3840,6 +3937,9 @@ def main():
         "bound_by": t["bound"][1],
         "library_ms": t["library_ms"],
     })
+    slices["script_s"] = time.perf_counter() - t_start
+    log(f"[done] chip_smoke.py {slices['script_s']:.1f} s, the build "
+        f"included ({card})")
     log(json.dumps({"kernels": kernels, "slices": slices}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3868,7 +3968,9 @@ def ab_main(parent_root, pairs):
     right-hand side per call (CUDA events over eager calls, and host
     enqueue) in turns; the verdict on run() compares this checkout's
     median with the other's range. Then this checkout's coupling times
-    (:func:`coupling_timing`)."""
+    (:func:`coupling_timing`), and both checkouts' coupling wrappers in
+    turns, unbatched at the flagship and batched at the field-2DES shape
+    (chain8, B = F2D_TIME_B) (:func:`ab_coupling`)."""
     import importlib
     import statistics
     card = phase_environment()
@@ -3934,6 +4036,51 @@ def ab_main(parent_root, pairs):
         f"parent's range {lo:.0f}-{hi:.0f} and quartile spread "
         f"{q[2] - q[0]:.0f}: {verdict}")
     coupling_timing(card, "fmo", runs["change"][1], torch.complex128)
+    ab_coupling(card, pkgs, "unbatched FMO flagship",
+                coupling_operands(runs["change"][1], torch.complex128))
+    ab_coupling(card, pkgs, f"batched chain8 B = {F2D_TIME_B}",
+                batched_operands(chain_solver(), torch.complex128,
+                                 F2D_TIME_B))
+
+
+def ab_coupling(card, pkgs, label, args):
+    """The coupling through each package's wrapper (with its own plan) on
+    the same complex128 operands ``args`` (F, nbr, w, OpT), per call in
+    turns: CUDA events over eager calls, and the host's enqueue; the
+    outputs must agree."""
+    import importlib
+    calls, outs = {}, {}
+    for k, p in pkgs.items():
+        kmod = importlib.import_module(p.__name__ + ".ops.kernels")
+        plan = kmod.heom_coupling_plan(args[1], args[2])
+        calls[k] = (lambda kmod=kmod, plan=plan:
+                    kmod.heom_coupling(*args, plan=plan))
+        outs[k] = calls[k]()
+    diff = rel(outs["change"], outs["parent"])
+    del outs
+    big = args[0].dim() == 3
+    t = {k: dict(eager=[], host=[]) for k in pkgs}
+    for i in range(4):
+        for k in (("parent", "change") if i % 2 == 0
+                  else ("change", "parent")):
+            t[k]["eager"].append(event_ms(calls[k], (), iters=10 if big
+                                          else 200, warmup=2 if big else 20))
+            t[k]["host"].append(host_ms(calls[k], (), iters=10 if big
+                                        else 300))
+    b = coupling_bound(*args)
+    log(f"[ab] coupling {label} complex128 per call, eager (CUDA events): "
+        + "; ".join(f"{k} " + " / ".join(f"{x * 1e3:.2f}" for x in
+                                         t[k]["eager"]) + " us"
+                    for k in pkgs)
+        + "; host enqueue: " + "; ".join(
+            f"{k} " + " / ".join(f"{x * 1e3:.2f}" for x in t[k]["host"])
+            + " us" for k in pkgs)
+        + f"; the change {min(t['parent']['eager']) / min(t['change']['eager']):.2f}x"
+        f" faster eager; bound {b[0] * 1e3:.2f} us ({b[1]}); outputs "
+        f"differ by rel {diff:.2e} ({card})")
+    if not diff <= 1e-12:
+        raise AssertionError(f"the two checkouts' couplings ({label}) differ "
+                             f"by {diff:.3e}")
 
 
 if __name__ == "__main__":

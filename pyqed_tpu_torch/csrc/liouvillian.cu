@@ -64,6 +64,7 @@ namespace {
 using pyqed::cp_async;
 using pyqed::cp_async_commit;
 using pyqed::cp_async_wait;
+using pyqed::dmma;
 
 // ------------------------------------------------------ complex128: DMMA
 
@@ -90,18 +91,6 @@ constexpr int kStage = kOffK + 2 * kKPlane;
 constexpr int kSmemBytes = static_cast<int>(sizeof(double)) * kStages * kStage;
 static_assert(kSmemBytes <= 232448, "dynamic shared memory of one block");
 static_assert(kBN * 2 * kBK % kThreadsTC == 0, "whole copies per thread");
-
-// d += a b for one warp on the FP64 tensor cores (m16n8k8). With
-// g = lane / 4 and t = lane % 4 (PTX ISA, mma.m16n8k8 .f64), a[i] holds
-// A(g + 8 (i % 2), t + 4 (i / 2)), b[i] holds B(t + 4 i, g) and d[i]
-// holds D(g + 8 (i / 2), 2 t + i % 2).
-__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4],
-                                     const double (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-}
 
 // Start the copies of k slice kt into its stage of the ring: the 128-row
 // panels of Heff and rho at rows i0, the 64-row panel of Heff at rows j0

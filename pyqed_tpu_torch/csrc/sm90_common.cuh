@@ -1,7 +1,7 @@
 // Helpers shared by the hand-written Hopper (sm_90a) kernels of
 // pyqed_tpu_torch: interleaved complex types, asynchronous copies from
-// global to shared memory (cp.async) and the opt-in to more than 48 KB of
-// dynamic shared memory. Included by heom_coupling.cu and
+// global to shared memory (cp.async), the FP64 tensor-core product
+// (DMMA) and the opt-in to more than 48 KB of dynamic shared memory. Included by heom_coupling.cu and
 // liouvillian.cu; ops/_cuda_lib.py hashes it into each library's name, so
 // an edit here rebuilds both.
 #pragma once
@@ -56,6 +56,18 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// d += a b for one warp on the FP64 tensor cores (m16n8k8). With
+// g = lane / 4 and t = lane % 4 (PTX ISA, mma.m16n8k8 .f64), a[i] holds
+// A(g + 8 (i % 2), t + 4 (i / 2)), b[i] holds B(t + 4 i, g) and d[i]
+// holds D(g + 8 (i / 2), 2 t + i % 2).
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4],
+                                     const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
 // The dynamic shared memory a kernel was allowed on each device, so that

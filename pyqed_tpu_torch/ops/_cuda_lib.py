@@ -40,6 +40,8 @@ SIGNATURES = {
     "heom_coupling": {
         "heom_coupling_c128": (_P,) * 5,
         "heom_coupling_c64": (_P,) * 5,
+        "heom_coupling_batched_c128": (_P,) * 5,
+        "heom_coupling_batched_c64": (_P,) * 5,
     },
     "spo": {
         "spo_phase_c128": _SPO,
@@ -58,6 +60,12 @@ class CouplingPlanArgs(ctypes.Structure):
     """``PlanArgs`` of ``csrc/heom_coupling.cu``, field for field."""
     _fields_ = [("w", _P), ("plan", _P), ("partial", _P), ("nado", _I),
                 ("ntiles", _I), ("nedges", _I), ("V", _I), ("B", _I)]
+
+
+class CouplingBatchArgs(ctypes.Structure):
+    """``BatchArgs`` of ``csrc/heom_coupling.cu``, field for field."""
+    _fields_ = [("nbr", _P), ("w", _P), ("nado", _I), ("nj", _I), ("V", _I),
+                ("B", _I)]
 
 
 @dataclasses.dataclass(frozen=True)

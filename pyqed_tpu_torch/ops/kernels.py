@@ -368,8 +368,12 @@ def heom_coupling_ref(F, nbr, w, OpT):
     return torch.einsum("dj...a, jab -> d...b", g, OpT)
 
 
-# edges per tile of the kernel (kRows in csrc/heom_coupling.cu)
+# edges per tile of the edge-major kernel (kRows in csrc/heom_coupling.cu)
 COUPLING_TILE_EDGES = 16
+# the batch B from which heom_coupling takes the destination-major kernel,
+# by F's dtype: below it the edge-major kernel is faster on an H100
+# (chip_smoke.py times both at B = 1, 2, 7, 16, 32 and 256; PERF.md)
+COUPLING_BATCH_MIN = {torch.complex128: 16, torch.complex64: 32}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -382,11 +386,13 @@ class CouplingPlan:
     (``operands``) as they were then (their ``_version`` counters are
     ``versions``): :func:`heom_coupling` takes it only with these two,
     unchanged. The int32 arrays are views of one buffer, ``ints``, which
-    the kernel takes as one pointer. ``arrived`` is the kernel's
-    per-destination count of finished edges, zero between calls, and
-    ``launch_args`` keeps, for each (V, B), what a launch takes that does
-    not change between calls, with the partials buffer: a plan serves one
-    stream at a time."""
+    the edge-major kernel takes as one pointer. ``arrived`` is that
+    kernel's per-destination count of finished edges, zero between calls,
+    and ``launch_args`` keeps, for each (V, B, design), what a launch
+    takes that does not change between calls, with the edge-major
+    design's partials buffer: a plan serves one stream at a time. The
+    destination-major kernel reads ``operands`` (nbr and w) as they
+    are."""
     operands: tuple         # (nbr, w) as given to heom_coupling_plan
     versions: tuple         # their _version counters at the build
     ints: torch.Tensor      # tiles | src | dst | slot | dst_ptr | arrived
@@ -503,16 +509,25 @@ def _check_operands(F, OpT, nbr, w):
         raise ValueError("heom_coupling: F and OpT must be contiguous")
 
 
-def _coupling_launch_args(plan, F, V, B):
-    """What a launch on a plan at F's dtype, V and batch B takes that does
-    not change between calls, made once: the C entry point, the partials
-    buffer ((nedges, B, V), allocated here with ``torch.empty``) and the
-    plan's pointers and sizes as one ``PlanArgs`` struct in host memory,
-    with its address. The plan keeps all four."""
+def _coupling_launch_args(plan, F, V, B, batched):
+    """What a launch on a plan at F's dtype, V, batch B and design takes
+    that does not change between calls, made once: the C entry point, the
+    launch's arguments as one struct in host memory (``PlanArgs`` or, for
+    the destination-major design, ``BatchArgs`` of the source), with its
+    address, and the edge-major design's partials buffer ((nedges, B, V),
+    allocated here with ``torch.empty``; None for the other). The plan
+    keeps all four."""
     from . import _cuda_lib
     lib = _cuda_lib.load("heom_coupling").lib
-    fn = (lib.heom_coupling_c128 if F.dtype == torch.complex128
-          else lib.heom_coupling_c64)
+    c128 = F.dtype == torch.complex128
+    if batched:
+        nbr, w = plan.operands
+        fn = (lib.heom_coupling_batched_c128 if c128
+              else lib.heom_coupling_batched_c64)
+        args = _cuda_lib.CouplingBatchArgs(
+            nbr.data_ptr(), w.data_ptr(), nbr.shape[0], nbr.shape[1], V, B)
+        return fn, ctypes.addressof(args), args, None
+    fn = lib.heom_coupling_c128 if c128 else lib.heom_coupling_c64
     partial = F.new_empty((plan.nedges, B, V))
     args = _cuda_lib.CouplingPlanArgs(
         plan.w.data_ptr(), plan.ints.data_ptr(), partial.data_ptr(),
@@ -550,32 +565,47 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
     one-hot selection matrices because a TPU gathers poorly; each of their
     rows has one nonzero at most, so on a GPU the selection is a row
     gather, and ``csrc/heom_coupling.cu`` covers every level and both
-    directions with one V×V complex row product per hierarchy edge: at the
-    FMO flagship (680 ADOs, M = 14, V = 49) 3,360 edges × 2,401 complex
-    MACs ≈ 65 MFLOP over 1.1 MB of operators. It runs edge-major, from a
-    :class:`CouplingPlan`, in one launch: each block stages one OpT[j]
-    once for a tile of edges and writes one partial row per edge into a
-    scratch buffer; the block that finishes a destination's last edge sums
-    its partials in a fixed order (the design notes are in the source, the
-    measured times in PERF.md).
+    directions with one V×V complex row product per hierarchy edge and
+    batch row, in one launch per call, by one of two designs (the notes
+    are in the source, the measured times in PERF.md):
 
-    F (nado, V) complex128/complex64, or (nado, B, V) for B hierarchies
-    that share the graph and the operators (one launch for the whole
-    batch: a block walks all B rows of its edges with OpT[j] staged
-    once), nbr (nado, nj) int32 (−1: no neighbour), w (nado, nj) real of
-    F's precision, OpT (nj, V, V) of F's dtype, all contiguous and on one
-    device. ``plan``, from
+    - F (nado, V), or (nado, B, V) with B below
+      :data:`COUPLING_BATCH_MIN` (16 at complex128, 32 at complex64):
+      edge-major, from the :class:`CouplingPlan`. Each block stages one
+      OpT[j] once for a tile of edges and writes one partial row per edge
+      (and batch row) into a scratch buffer; the block that finishes a
+      destination's last edge sums its partials in a fixed order. At the
+      FMO flagship (680 ADOs, M = 14, V = 49; 3,360 edges × 2,401 complex
+      MACs ≈ 65 MFLOP, bound 0.96 us) the HEOM step is host-bound, and
+      this design keeps its launch short.
+    - F (nado, B, V) with B at or above it: destination-major. A block
+      owns one destination, a tile of 64 batch rows and 64 columns, walks
+      the destination's edges in ascending j through a ring of
+      asynchronous copies, multiplies on the FP64 tensor cores
+      (complex64: FP32 FMA) and writes its outputs once: no partials
+      buffer, no atomics. At the field-2DES shape (the n = 8 chain, 680
+      ADOs, V = 64, B = 256) a call is 28.2 GFLOP over 357 MB, bound by
+      the FP64 tensor-core rate at 0.42 ms. The edge-major design took
+      3.69-3.72 ms there: FP64 FMA (never below 0.83 ms), a 1.76 GB round
+      trip of partials, 1.7 waves of blocks walking 256 batch rows one
+      after another, and a long summing tail.
+
+    F complex128/complex64, nbr (nado, nj) int32 (−1: no neighbour), w
+    (nado, nj) real of F's precision, OpT (nj, V, V) of F's dtype, all
+    contiguous and on one device. ``plan``, from
     :func:`heom_coupling_plan` on these very nbr and w tensors (the
     wrapper raises for any other, or for these changed in place since),
     is built once per right-hand side by :func:`heom_rhs_coupling_factory`:
     nbr and w are checked when it is built, F and OpT on every call.
     Without a plan nbr and w are checked here, and on CUDA a plan is built
-    from them on the host, which copies them back. The partials buffer
-    is allocated with ``torch.empty`` at a plan's first launch at each
-    (V, B) and kept with it. On the CPU this is :func:`heom_coupling_ref`;
-    on CUDA it launches the kernel (counted in ``heom_coupling.launches``, one per
-    right-hand side, so an RK4 run counts 4 per step) or raises; a
-    hierarchy without edges (one ADO) launches nothing and returns zeros.
+    from them on the host, which copies them back. The edge-major design's
+    partials buffer is allocated with ``torch.empty`` at a plan's first
+    launch at each (V, B) and kept with it. On the CPU this is
+    :func:`heom_coupling_ref`; on CUDA it launches one of the two kernels
+    (counted in ``heom_coupling.launches``, one per right-hand side, so an
+    RK4 run counts 4 per step; the destination-major launches also in
+    ``heom_coupling.batched_launches``) or raises; a hierarchy without
+    edges (one ADO) launches nothing and returns zeros.
     """
     if plan is None:
         _check_graph(nbr, w)
@@ -588,10 +618,24 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
         return heom_coupling_ref(F, nbr, w, OpT)
     if plan is None:
         plan = heom_coupling_plan(nbr, w)
-    out = torch.zeros_like(F) if plan.edgeless else torch.empty_like(F)
+    return _coupling_launch(F, OpT, plan, coupling_batched(F))
+
+
+def coupling_batched(F):
+    """Whether :func:`heom_coupling` takes the destination-major design for
+    F: a batch (nado, B, V) of at least ``COUPLING_BATCH_MIN[F.dtype]``."""
+    return F.dim() == 3 and F.shape[1] >= COUPLING_BATCH_MIN[F.dtype]
+
+
+def _coupling_launch(F, OpT, plan, batched):
+    """One launch of the coupling kernel on checked CUDA operands, by the
+    destination-major design when ``batched``, else by the edge-major one
+    (chip_smoke.py times both at the same batch through this)."""
     if plan.nedges == 0 or F.numel() == 0:
-        return out
-    key = (F.shape[-1], F.shape[1] if F.dim() == 3 else 1)
+        return torch.zeros_like(F)
+    out = (torch.zeros_like(F) if plan.edgeless and not batched
+           else torch.empty_like(F))
+    key = (F.shape[-1], F.shape[1] if F.dim() == 3 else 1, batched)
     args = plan.launch_args.get(key)
     if args is None:
         args = plan.launch_args[key] = _coupling_launch_args(plan, F, *key)
@@ -602,10 +646,13 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
         raise RuntimeError(f"heom_coupling: kernel launch failed with CUDA "
                            f"error {err}")
     heom_coupling.launches += 1
+    if batched:
+        heom_coupling.batched_launches += 1
     return out
 
 
 heom_coupling.launches = 0
+heom_coupling.batched_launches = 0
 
 
 def drive_superop(edip):

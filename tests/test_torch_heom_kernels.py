@@ -300,21 +300,28 @@ def test_cuda_entry_points_match_ctypes_signatures():
     for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
         found[name] = len([p for p in params.split(",") if p.strip()])
     sigs = _cuda_lib.SIGNATURES["heom_coupling"]
-    assert set(found) == {"heom_coupling_c128", "heom_coupling_c64"}
+    assert set(found) == {"heom_coupling_c128", "heom_coupling_c64",
+                          "heom_coupling_batched_c128",
+                          "heom_coupling_batched_c64"}
     assert set(found) == set(sigs)
     for name, nparams in found.items():
         assert len(sigs[name]) == nparams
 
 
 def test_plan_args_struct_matches_ctypes():
-    """The PlanArgs struct that the C entry points take has the fields of
-    _cuda_lib.CouplingPlanArgs, in order, with matching C types."""
+    """The structs that the C entry points take, PlanArgs (edge-major) and
+    BatchArgs (destination-major), have the fields of
+    _cuda_lib.CouplingPlanArgs and CouplingBatchArgs, in order, with
+    matching C types."""
     src = (Path(_cuda_lib.CSRC) / "heom_coupling.cu").read_text()
-    body = re.search(r"struct PlanArgs \{(.*?)\};", src, re.S).group(1)
-    fields = re.findall(r"^\s*(?:const )?(void\*|int) (\w+);", body, re.M)
     ctype = {"void*": ctypes.c_void_p, "int": ctypes.c_int}
-    assert [(name, ctype[t]) for t, name in fields] == \
-        _cuda_lib.CouplingPlanArgs._fields_
+    for struct, mirror in (("PlanArgs", _cuda_lib.CouplingPlanArgs),
+                           ("BatchArgs", _cuda_lib.CouplingBatchArgs)):
+        body = re.search(rf"struct {struct} \{{(.*?)\}};", src,
+                         re.S).group(1)
+        fields = re.findall(r"^\s*(?:const )?(void\*|int) (\w+);", body,
+                            re.M)
+        assert [(name, ctype[t]) for t, name in fields] == mirror._fields_
 
 
 def test_build_digest_sees_included_headers(tmp_path):
@@ -414,6 +421,82 @@ def test_plan_walk_plus_local_matches_jax(case):
     out = F @ t(C) - t(damp)[:, None] * F + plan_walk(
         F, t(OpT), kn.heom_coupling_plan(t(nbr), t(w)))
     assert rel_err(out.numpy(), ref) < RTOL
+
+
+def dest_walk(F, OpT, nbr, w):
+    """Plain walk of the destination-major kernel of
+    csrc/heom_coupling.cu on F (nado, B, V): for every destination, its
+    edges in ascending j, the weight on the source rows, all into one
+    accumulator from zero (the destinations side by side)."""
+    nado, nj = nbr.shape
+    acc = F.new_zeros(F.shape)
+    for j in range(nj):
+        has = nbr[:, j] >= 0
+        src = nbr[has, j].long()
+        acc[has] += (w[has, j, None, None] * F[src]) @ OpT[j]
+    return acc
+
+
+@pytest.mark.parametrize("B", [1, 3, 33])
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_dest_walk_matches_coupling_ref(case, B):
+    """The destination-major kernel's arithmetic, walked in plain torch,
+    equals the gather-and-contract plain version on a batch of B."""
+    h = plan_case(case)
+    _, OpT, nbr, w = (t(x) for x in kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"]))
+    F = t(crand(h["rng"], nbr.shape[0], B, OpT.shape[-1]))
+    out = dest_walk(F, OpT, nbr, w)
+    ref = kn.heom_coupling_ref(F, nbr, w, OpT)
+    if case == "nado1":
+        assert not out.abs().any() and not ref.abs().any()
+    else:
+        assert rel_err(out.numpy(), ref.numpy()) < RTOL
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_dest_walk_plus_local_matches_jax(case):
+    """flat @ C − damp·flat + the destination-major walk, on a batch of
+    two hierarchies, == the JAX stacked RHS of each."""
+    h = plan_case(case)
+    n = h["H"].shape[0]
+    nado = h["keys"].shape[0]
+    ados = crand(h["rng"], 2, nado, n, n)
+    refs, flats = [], []
+    for b in range(2):
+        ref, (_, _, damp, flat, _) = jax_dot_reference(h, ados[b])
+        refs.append(ref)
+        flats.append(flat)
+    C, OpT, nbr, w = (t(x) for x in kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"]))
+    F = t(np.stack(flats, axis=1))                     # (nado, 2, V)
+    out = F @ C - t(damp)[:, None, None] * F + dest_walk(F, OpT, nbr, w)
+    assert rel_err(out.numpy(), np.stack(refs, axis=1)) < RTOL
+
+
+def test_coupling_design_by_batch():
+    """An unbatched F and batches below COUPLING_BATCH_MIN take the
+    edge-major kernel, larger batches the destination-major one; on the
+    CPU both give the plain version and launch nothing."""
+    h = plan_case("small")
+    _, OpT, nbr, w = (t(x) for x in kn.heom_coupling_operands(
+        h["H"], h["Q"], h["c"], h["keys"], h["plus_idx"], h["minus_idx"]))
+    nado, V = nbr.shape[0], OpT.shape[-1]
+    assert set(kn.COUPLING_BATCH_MIN) == {torch.complex128, torch.complex64}
+    bmin = kn.COUPLING_BATCH_MIN[torch.complex128]
+    assert bmin > 1
+    assert not kn.coupling_batched(torch.zeros((nado, V), dtype=OpT.dtype))
+    for B, batched in ((1, False), (bmin - 1, False), (bmin, True),
+                       (bmin + 3, True)):
+        F = t(crand(h["rng"], nado, B, V))
+        assert kn.coupling_batched(F) == batched
+        kn.heom_coupling.launches = kn.heom_coupling.batched_launches = 0
+        torch.testing.assert_close(
+            kn.heom_coupling(F, nbr, w, OpT,
+                             plan=kn.heom_coupling_plan(nbr, w)),
+            kn.heom_coupling_ref(F, nbr, w, OpT), rtol=0, atol=0)
+        assert kn.heom_coupling.launches == kn.heom_coupling.batched_launches \
+            == 0
 
 
 def test_plan_layout():
