@@ -150,6 +150,36 @@ nonzero:
      eigenpairs by block Davidson), Lippmann-Schwinger at 2,000 points x
      128 k, Fermi-Hubbard at L = 6 (half filling), Rice-Mele bands and
      the surface Green's function; every launch count stays 0;
+   - tensor networks (``phase_tn``; no kernel lies on tn/, every launch
+     count stays 0): two-site DMRG on the critical TFIM at L = 100,
+     chi_max 128, 8 sweeps at most (stops when a sweep moves the energy
+     by less than 1e-10), against the free-fermion ground energy (rel <=
+     1e-8), with bond updates/s, host synchronisations per bond (sync
+     debug mode), device busy share and peak memory; DMRG at L = 20
+     (chi 32) card vs CPU from the same tensors (energies and Schmidt
+     values <= 1e-10); one-site TDVP of the L = 100 ground state quenched
+     to h = 2 (energy conserved <= 1e-10; 4 steps, at 5.5 s a step) and
+     TDVP2 at chi 64 (drift printed); TDVP at L = 20 card vs CPU (overlap
+     and <sz_i> <= 1e-10); TEBD at L = 20 against the same gates on the
+     dense state (<= 1e-8); Pyrazine4().spectral_dynamics() at its
+     defaults card vs CPU (<= 1e-10) and at chi 64, exact for the
+     3 x 8^4 chain, its start padded to chi 64, against SciPy's
+     expm_multiply of the sparse LVC Hamiltonian from the same
+     noise-padded state (<= 1e-8); TT-LDR on
+     examples/ttldr_vibronic.py's model at level 5 (31^2 x 2) at full
+     ranks against the dense LDRN propagation (<= 1e-8) and at the
+     example's ranks (error printed);
+   - optimal control (``phase_control``): examples/optimal_control_grape.py's
+     three problems with the example's asserts (GRAPE state transfer and
+     NOT gate, OpenGRAPE against decay, the Lindblad rate fit through
+     the commutator kernel's backward, 150 iterations), loss histories
+     card vs CPU (<= 1e-8; the fit over its first 10 iterations),
+     OpenGRAPE on config #2's dimer (n = 16, Liouville 256^2, 100
+     slices; card vs CPU over 3 iterations), the n = 16 rate fit's
+     gradient through kernel='cuda' against kernel='matmul' (<= 1e-10)
+     with launches exactly 4 x Nt forward and 4 x Nt - 1 backward, and
+     the commutator's backward against the plain version's autograd at
+     n = 16, 1024 and 2048 (c128 <= 1e-12, c64 <= 1e-5);
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -175,14 +205,17 @@ nonadiabatic runs' steps/s, aten ops and device time per step and busy
 share, and the batched HEOM coupling at the field-2DES shape (B = 256)
 against its plain version and its bound, with both designs at B = 1, 2,
 7, 16, 32 and 256 (complex128 and complex64), which sets the batch from
-which the wrapper takes the destination-major kernel.
+which the wrapper takes the destination-major kernel; and the
+commutator's backward (the kernel on -H_eff^dag and the cotangent) at
+n = 1024 against the plain backward and two ZGEMMs (its kernels entry
+``liouvillian_commutator_backward``).
 
 The line before the last is a JSON summary of the kernels (the generic
 SPO branch as ``spo_potential_generic``, timed at the main path's
 1,024 x 10 with its 2^20-point times beside; the batched coupling as
 ``heom_coupling_batched``), with the 2DES, DEOM, driven-HEOM, polariton,
-LDR, open, nonadiabatic, field-2DES and grid gates and times under
-"slices";
+LDR, open, nonadiabatic, field-2DES, grid, tn and control gates and
+times under "slices";
 the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
 printing any result.
@@ -280,6 +313,7 @@ def reset_counts():
     for fn in kernel_wrappers().values():
         fn.launches = 0
     kernel_wrappers()["heom_coupling"].batched_launches = 0
+    kernel_wrappers()["liouvillian_commutator"].backward_launches = 0
 
 
 def batched_launches():
@@ -3808,6 +3842,596 @@ def phase_grid_rest(card):
     return out
 
 
+# ---------------------------------------------------------------- tn/
+TN_L = 100                    # DMRG at full width: critical TFIM, L = 100
+TN_CHI = 128
+TN_SWEEPS = 8
+TN_PROBE_BONDS = 10           # bond updates timed, profiled and sync-counted
+TN_CPU_L = 20                 # card vs CPU: DMRG, TDVP, TEBD at L = 20
+TN_CPU_CHI = 32
+TN_CPU_SWEEPS = 2
+TN_TDVP_DT = 0.05
+TN_TDVP_NT = 4                # the L = 100 quench to h = 2 (5.5 s a step)
+TN_TDVP_CPU_NT = 4
+TN_TDVP2_CHI = 64
+TN_TDVP2_NT = 1
+TN_TEBD_NT = 40
+TN_PYR = dict(nb=8, nt=60, nout=10)   # Pyrazine4.spectral_dynamics' defaults
+TT_LEVEL = 5                  # examples/ttldr_vibronic.py's model, 31^2 x 2
+TT_NT = 20
+TT_DT = 0.02
+
+
+def tfim_free_fermion_energy(L, J=1.0, h=1.0):
+    """Exact ground energy of the open chain H = -J sum sz sz - h sum sx
+    (the port's mpo_tfim) from free fermions: with Majoranas a_j, b_j the
+    Hamiltonian is (i/2) sum M_mn g_m g_n, M real antisymmetric 2L x 2L
+    (h on (a_j, b_j), J on (b_j, a_j+1)); E0 = -(1/2) sum |eig(iM)|."""
+    M = np.zeros((2 * L, 2 * L))
+    for j in range(L):
+        M[2 * j, 2 * j + 1] = h
+    for j in range(L - 1):
+        M[2 * j + 1, 2 * j + 2] = J
+    M = M - M.T
+    return -0.5 * np.abs(np.linalg.eigvalsh(1j * M)).sum()
+
+
+def mps_to(mps, device):
+    """The same MPS tensors on another device."""
+    from pyqed_tpu_torch import tn
+    return tn.MPS([B.to(device) for B in mps.Bs],
+                  [S.to(device) for S in mps.Ss])
+
+
+def no_launches(label):
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: kernel launches {counts}, expected "
+                             "none")
+
+
+def sync_count(fn):
+    """(fn(), the host synchronisations it made), counted by
+    torch.cuda's sync debug mode (one warning per synchronising call)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_tn(card):
+    """tn/ on the card: two-site DMRG on the critical TFIM at L = 100,
+    chi 128, against the free-fermion energy (1e-8 relative); card vs CPU
+    at L = 20 (energies and Schmidt values 1e-10); one-site TDVP of the
+    L = 100 ground state quenched to h = 2 (energy conservation 1e-10) and
+    TDVP2 at chi 64 (drift printed); TEBD at L = 20 against the same gates
+    applied to the dense state (1e-8); Pyrazine4.spectral_dynamics card vs
+    CPU (1e-8) and, at chi 64 (exact for the 3 x 8^4 chain), against
+    SciPy's expm_multiply of the sparse LVC Hamiltonian from the same
+    padded state (:func:`pyrazine_vs_exact`); TT-LDR at level 5 at full
+    ranks against the dense LDRN propagation (1e-8) and at the example's
+    ranks. No hand-written kernel lies on this path: every launch count
+    stays 0."""
+    from pyqed_tpu_torch import tn
+    from pyqed_tpu_torch.models.vibronic import Pyrazine4
+    out = {}
+    sx = np.array([[0.0, 1.0], [1.0, 0.0]])
+    sz = np.diag([1.0, -1.0])
+    # ---- DMRG at full width
+    mpo = tn.mpo_tfim(TN_L, J=1.0, h=1.0, device=DEVICE)
+    psi0 = tn.MPS.random(TN_L, chi=8, seed=SEED, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()          # read by no_launches until the phase ends
+    solver = tn.DMRG(mpo, psi0, chi_max=TN_CHI)
+    (energies, gs), wall = timed(lambda: solver.run(sweeps=TN_SWEEPS))
+    no_launches("DMRG")
+    e_exact = tfim_free_fermion_energy(TN_L)
+    nb = 2 * (TN_L - 1) * len(energies)
+    chis = gs.get_bond_dimensions()
+    out["dmrg"] = dict(
+        L=TN_L, chi_max=TN_CHI, sweeps=len(energies), energies=energies,
+        exact=e_exact, wall_s=wall, bond_updates_per_s=nb / wall,
+        max_chi=max(chis),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"[tn] DMRG TFIM L={TN_L} chi_max={TN_CHI}: {len(energies)} sweeps "
+        f"in {wall:.2f} s, {nb / wall:.1f} bond updates/s, max bond "
+        f"{max(chis)}, peak {out['dmrg']['peak_gib']:.2f} GiB; energies "
+        + ", ".join(f"{e:.12f}" for e in energies) + f" ({card})")
+    rel_e = abs(energies[-1] - e_exact) / abs(e_exact)
+    if rel_e > 1e-8:
+        log(f"[tn] chi_max={TN_CHI} reaches rel {rel_e:.3e} of the "
+            "free-fermion energy, above the 1e-8 gate")
+    out["dmrg"]["rel_err"] = gate("tn", f"DMRG L={TN_L} energy vs free "
+                                  f"fermions {e_exact:.12f}", rel_e, 1e-8)
+    # bond updates in the middle of the chain: wall, device time, syncs
+    mid = range(TN_L // 2 - TN_PROBE_BONDS // 2,
+                TN_L // 2 + TN_PROBE_BONDS // 2)
+
+    def probe():
+        for i in mid:
+            solver.update_bond(i)
+
+    probe()
+    _, wall = timed(probe)
+    total_us, rows = profile_steps(probe, 1, per=TN_PROBE_BONDS)
+    _, syncs = sync_count(probe)
+    torch.cuda.synchronize()
+    per_bond = wall / TN_PROBE_BONDS
+    out["dmrg"].update(
+        bond_ms=per_bond * 1e3, device_ms_per_bond=total_us / 1e3,
+        busy=total_us / 1e6 / per_bond,
+        host_syncs_per_bond=syncs / TN_PROBE_BONDS)
+    log(f"[tn] DMRG bond update at chi {chis[TN_L // 2]}: {per_bond * 1e3:.2f}"
+        f" ms wall, {total_us / 1e3:.2f} ms device, busy share "
+        f"{out['dmrg']['busy']:.3f}, host syncs per bond "
+        f"{syncs / TN_PROBE_BONDS:.1f} ({card})")
+    for us_, count, key in rows[:6]:
+        log(f"[tn]   {us_:9.1f} us x{count:<6g} {key[:80]}")
+    # ---- card vs CPU at L = 20
+    mpo20 = {d: tn.mpo_tfim(TN_CPU_L, J=1.0, h=1.0, device=d)
+             for d in (DEVICE, "cpu")}
+    start = tn.MPS.random(TN_CPU_L, chi=8, seed=SEED, device="cpu")
+    runs = {d: tn.two_site_dmrg(mpo20[d], mps_to(start, d),
+                                chi_max=TN_CPU_CHI, sweeps=TN_CPU_SWEEPS)
+            for d in (DEVICE, "cpu")}
+    (ec, gc), (eh, gh) = runs[DEVICE], runs["cpu"]
+    n = min(len(ec), len(eh))
+    d_e = max(abs(a - b) / abs(b) for a, b in zip(ec[:n], eh[:n]))
+    d_s = max((a[:min(len(a), len(b))].cpu()
+               - b[:min(len(a), len(b))]).abs().max().item()
+              for a, b in zip(gc.Ss[1:], gh.Ss[1:]))
+    out["dmrg_l20_vs_cpu"] = [
+        gate("tn", f"DMRG L={TN_CPU_L} chi {TN_CPU_CHI} energies card vs "
+             "CPU", d_e, 1e-10),
+        gate("tn", f"DMRG L={TN_CPU_L} Schmidt values card vs CPU", d_s,
+             1e-10)]
+    # ---- TDVP: the L = 100 ground state quenched to h = 2
+    quench = tn.mpo_tfim(TN_L, J=1.0, h=2.0, device=DEVICE)
+    td = tn.TDVP(quench, gs, krylov_dim=16)
+    e0 = td.expect_mpo().real
+    _, wall = timed(lambda: td.run(TN_TDVP_DT, TN_TDVP_NT))
+    e1 = td.expect_mpo().real
+    no_launches("TDVP")
+    out["tdvp"] = dict(steps=TN_TDVP_NT, steps_per_s=TN_TDVP_NT / wall,
+                       e0=e0, e1=e1)
+    log(f"[tn] TDVP L={TN_L} quench h=1 -> 2, {TN_TDVP_NT} steps of "
+        f"{TN_TDVP_DT}: {TN_TDVP_NT / wall:.2f} steps/s ({card})")
+    out["tdvp"]["drift"] = gate("tn", "TDVP energy conservation (rel)",
+                                abs(e1 - e0) / abs(e0), 1e-10)
+    td2 = tn.TDVP2(quench, gs, chi_max=TN_TDVP2_CHI, krylov_dim=16)
+    _, wall = timed(lambda: td2.run(TN_TDVP_DT, TN_TDVP2_NT))
+    d2 = abs(td2.expect_mpo().real - e0) / abs(e0)
+    out["tdvp2"] = dict(steps=TN_TDVP2_NT, steps_per_s=TN_TDVP2_NT / wall,
+                        drift=d2, max_chi=max(M.shape[2] for M in td2.Ms))
+    log(f"[tn] TDVP2 chi_max={TN_TDVP2_CHI}: {TN_TDVP2_NT} steps at "
+        f"{TN_TDVP2_NT / wall:.3f} steps/s, energy drift (rel) {d2:.3e}, "
+        f"max bond {out['tdvp2']['max_chi']} ({card})")
+    # TDVP card vs CPU at L = 20 from the same tensors
+    q20 = {d: tn.mpo_tfim(TN_CPU_L, J=1.0, h=2.0, device=d)
+           for d in (DEVICE, "cpu")}
+    # (the ground state's tiny Schmidt values leave QR gauges free, so the
+    # states are compared, not their tensors)
+    tds = {d: tn.TDVP(q20[d], mps_to(gh, d), krylov_dim=16).run(
+        TN_TDVP_DT, TN_TDVP_CPU_NT) for d in (DEVICE, "cpu")}
+    out["tdvp_l20_vs_cpu"] = [
+        gate("tn", f"TDVP L={TN_CPU_L} {TN_TDVP_CPU_NT} steps: the state "
+             "card vs CPU", (tds[DEVICE].to_mps().to_dense().cpu()
+                             - tds["cpu"].to_mps().to_dense()).abs().max()
+             .item(), 1e-10),
+        gate("tn", f"TDVP L={TN_CPU_L} <sx_i> card vs CPU", np.abs(
+            np.subtract(tds[DEVICE].expect_local([sx] * TN_CPU_L),
+                        tds["cpu"].expect_local([sx] * TN_CPU_L))).max(),
+             1e-10)]
+    # ---- TEBD at L = 20 against the dense gate sequence
+    bond = -np.kron(sz, sz) - 0.5 * (np.kron(sx, np.eye(2))
+                                     + np.kron(np.eye(2), sx))
+    prod = tn.MPS.from_product_state([[1.0, 0.0]] * TN_CPU_L, device=DEVICE)
+    psi_t, wall = timed(lambda: tn.tebd(prod, bond, TN_TDVP_DT, TN_TEBD_NT,
+                                        chi_max=TN_CPU_CHI * 4))
+    no_launches("TEBD")
+    w, V = np.linalg.eigh(bond)
+    gates = {tau: torch.as_tensor((V * np.exp(-1j * w * tau)) @ V.conj().T,
+                                  device=DEVICE)
+             for tau in (TN_TDVP_DT, TN_TDVP_DT / 2)}
+    psi = prod.to_dense()
+    even, odd = range(0, TN_CPU_L - 1, 2), range(1, TN_CPU_L - 1, 2)
+    for _ in range(TN_TEBD_NT):
+        for sites, tau in ((even, TN_TDVP_DT / 2), (odd, TN_TDVP_DT),
+                           (even, TN_TDVP_DT / 2)):
+            for i in sites:
+                psi = torch.einsum("ab, xbz -> xaz", gates[tau],
+                                   psi.reshape(2 ** i, 4, -1)).reshape(-1)
+    out["tebd"] = gate("tn", f"TEBD L={TN_CPU_L} {TN_TEBD_NT} steps "
+                       f"({wall:.2f} s) vs the dense gate sequence",
+                       (psi_t.to_dense() - psi).abs().max().item(), 1e-8)
+    # ---- VibronicMPS: Pyrazine4.spectral_dynamics
+    (_, p_c), wall = timed(lambda: Pyrazine4(device=DEVICE)
+                           .spectral_dynamics(**TN_PYR))
+    no_launches("Pyrazine4.spectral_dynamics")
+    t0 = time.perf_counter()
+    _, p_h = Pyrazine4(device="cpu").spectral_dynamics(**TN_PYR)
+    wall_cpu = time.perf_counter() - t0
+    out["pyrazine"] = dict(card_s=wall, cpu_s=wall_cpu,
+                           final_populations=p_c[-1].tolist())
+    log(f"[tn] Pyrazine4.spectral_dynamics({TN_PYR}), chi 32: card "
+        f"{wall:.2f} s, CPU {wall_cpu:.2f} s; final "
+        f"populations {p_c[-1].tolist()} ({card})")
+    # 1e-8, the project gate: at chi 32 the SVDs cut a spectrum whose
+    # tail holds the 1e-8 noise that pad_noise seeds, and LAPACK and
+    # cuSOLVER resolve those singular vectors differently at rounding
+    out["pyrazine"]["vs_cpu"] = gate(
+        "tn", "Pyrazine4 populations card vs CPU",
+        (p_c.cpu() - p_h).abs().max().item(), 1e-8)
+    out["pyrazine"]["exact"] = pyrazine_vs_exact(card, p_c)
+    # ---- TT-LDR at level 5
+    out["ttldr"] = ttldr_vs_dense(card)
+    no_launches("phase_tn")
+    return out
+
+
+def pyrazine_vs_exact(card, p_default):
+    """Pyrazine4's VibronicMPS at chi 64 (exact for the 3 x 8^4 chain: the
+    widest bond is 8^2), its start padded to chi 64 with 1e-8 noise
+    (every bond at full rank, so two-site TDVP has no projection error),
+    against SciPy's expm_multiply of the sparse 12,288-dimensional LVC
+    Hamiltonian from the same padded state (<= 1e-8); and the defaults'
+    run ``p_default`` (chi 32, start padded to chi 8) against the exact
+    propagation of its own start (printed: the projection error of a
+    rank-deficient start)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    from pyqed_tpu_torch.models.vibronic import Pyrazine4
+    from pyqed_tpu_torch.tn.vibronic import VibronicMPS, boson_ops
+    from pyqed_tpu_torch.units import au2fs
+    H_el, omegas, Vs = Pyrazine4(device=DEVICE).lvc()
+    nb, nt, nout = TN_PYR["nb"], TN_PYR["nt"], TN_PYR["nout"]
+    dt = 0.25 / au2fs
+    vm = VibronicMPS(H_el, omegas, Vs, nb=nb, chi_max=TN_TDVP2_CHI,
+                     device=DEVICE)
+    (_, pops), wall = timed(lambda: vm.run(el_state=2, dt=dt, nt=nt,
+                                           nout=nout, chi_pad=TN_TDVP2_CHI))
+    a, ad, num = boson_ops(nb)
+    x = sp.csr_matrix((a + ad) / np.sqrt(2.0))
+    eye_b = sp.identity(nb, format="csr")
+
+    def embed(el, k, op):
+        out = sp.csr_matrix(el)
+        for m in range(4):
+            out = sp.kron(out, op if m == k else eye_b, format="csr")
+        return out
+
+    H = embed(H_el, -1, eye_b)
+    for k in range(4):
+        H = H + omegas[k] * embed(np.eye(3), k, sp.csr_matrix(num)) \
+            + embed(Vs[k], k, x)
+
+    def exact(chi_pad):
+        psi = vm.initial_state(2).pad_noise(chi_pad, noise=1e-8).to_dense()
+        psi = psi.cpu().numpy()
+        pops = [(np.abs(psi.reshape(3, -1)) ** 2).sum(1)]
+        for _ in range(nt // nout):
+            psi = spl.expm_multiply(-1j * nout * dt * H, psi)
+            pops.append((np.abs(psi.reshape(3, -1)) ** 2).sum(1))
+        return np.array(pops)
+
+    d_default = np.abs(p_default.cpu().numpy() - exact(8)).max()
+    log(f"[tn] VibronicMPS chi {TN_TDVP2_CHI}, start padded to chi "
+        f"{TN_TDVP2_CHI}: {nt} steps in {wall:.2f} s; the defaults (chi 32, "
+        f"start padded to chi 8) {d_default:.3e} from the exact propagation "
+        f"of their start ({card})")
+    return dict(default_vs_exact=d_default, wall_s=wall, vs_exact=gate(
+        "tn", f"Pyrazine4 chi {TN_TDVP2_CHI} populations vs sparse "
+        "expm_multiply from the same padded state",
+        np.abs(pops.cpu().numpy() - exact(TN_TDVP2_CHI)).max(), 1e-8))
+
+
+def ttldr_model(level, device):
+    """examples/ttldr_vibronic.py's two coupled harmonic surfaces with
+    rotating local states, on [-5, 5]^2 at ``level``."""
+    from pyqed_tpu_torch import LDRN
+    domains = [(-5.0, 5.0), (-5.0, 5.0)]
+    ldr = LDRN(domains, [level, level], nstates=2, mass=[1.0, 1.0],
+               device=device)
+    X, Y = np.meshgrid(ldr.x[0], ldr.x[1], indexing="ij")
+    v = np.stack([0.5 * (X ** 2 + Y ** 2),
+                  0.5 * ((X - 1) ** 2 + Y ** 2) + 1.0], axis=-1)
+    theta = 0.25 * np.arctan2(Y, X + 0.1)
+    states = np.stack([np.stack([np.cos(theta), np.sin(theta)], -1),
+                       np.stack([-np.sin(theta), np.cos(theta)], -1)], -2)
+    psi0 = np.zeros((*X.shape, 2), complex)
+    psi0[..., 0] = np.exp(-(X - 1.0) ** 2 - Y ** 2)
+    psi0 /= np.linalg.norm(psi0)
+    ldr.set_apes(v)
+    return domains, ldr, v, states, psi0
+
+
+def ttldr_vs_dense(card):
+    """TT-LDR at level 5: full ranks against the dense LDRN propagation
+    (1e-8, as tests/test_ttspo.py), the example's ranks printed."""
+    from pyqed_tpu_torch import tn
+    domains, ldr, v, states, psi0 = ttldr_model(TT_LEVEL, DEVICE)
+    A = ldr.build_ovlp(states)
+    U = ldr.short_time_propagator(TT_DT)
+    psi = torch.as_tensor(psi0, device=DEVICE).reshape(-1)
+    for _ in range(TT_NT):
+        psi = U @ psi
+    psi = psi.reshape(*ldr.nx, 2)
+    n1 = ldr.nx[0]
+    out = {}
+    for label, ranks in (("full", dict(rank_state=2 * n1, rank_pes=2 * n1,
+                                       rank_ovlp=4 * n1 * n1)),
+                         ("example", dict(rank_state=24, rank_pes=24,
+                                          rank_ovlp=96))):
+        tt = tn.TT_LDR(domains, [TT_LEVEL] * 2, nstates=2, mass=[1.0, 1.0],
+                       device=DEVICE)
+        tt.set_apes(v)
+        tt.set_ovlp(A)
+        res, wall = timed(lambda: tt.run(psi0, TT_DT, TT_NT, **ranks))
+        no_launches("TT_LDR")
+        d = (tn.tt_to_dense(res["cores_list"][-1]) - psi).abs().max().item()
+        out[label] = dict(ranks=ranks, err=d, wall_s=wall,
+                          max_rank=max(G.shape[2]
+                                       for G in res["cores_list"][-1]))
+        log(f"[tn] TT_LDR level {TT_LEVEL} ({n1}^2 x 2) ranks {ranks}: "
+            f"{TT_NT} steps in {wall:.2f} s, max state rank "
+            f"{out[label]['max_rank']}, max|psi_TT - psi_dense| {d:.3e} "
+            f"({card})")
+    gate("tn", "TT_LDR full ranks vs dense LDRN", out["full"]["err"], 1e-8)
+    return out
+
+
+# ---------------------------------------------------------------- control
+CTL_FIT_ITERS = 150           # examples/optimal_control_grape.py step 3
+CTL_FIT_CPU_ITERS = 10        # the rate fit's first iterations on the CPU
+CTL_OG_STEPS = 100            # OpenGRAPE on config #2's dimer, n = 16
+CTL_OG_ITERS = 20
+CTL_OG_CPU_ITERS = 3
+CTL_LB_NT = 200               # the n = 16 rate fit through the kernel
+CTL_LB_DT = 0.05
+CTL_BWD_SIZES = (16, 1024, 2048)
+
+
+def grape_examples(device):
+    """examples/optimal_control_grape.py's three problems on ``device``:
+    (their numbers, the loss histories), the example's asserts applied."""
+    from pyqed_tpu_torch.control import GRAPE, OpenGRAPE
+    sx = np.array([[0.0, 1.0], [1.0, 0.0]], complex)
+    sy = np.array([[0.0, -1j], [1j, 0.0]])
+    sz = np.diag([1.0, -1.0]).astype(complex)
+    sm = np.array([[0.0, 1.0], [0.0, 0.0]], complex)
+    hist, nums = {}, {}
+    g = GRAPE(H0=0.5 * sz, Hc=[sx], dt=0.2, n_steps=40, device=device)
+    _, hist["state"] = g.optimize_state_transfer(
+        [1.0, 0.0], [0.0, 1.0], iters=300, learning_rate=0.08)
+    g2 = GRAPE(H0=0.3 * sz, Hc=[sx, sy], dt=0.25, n_steps=30, device=device)
+    _, hist["gate"] = g2.optimize_gate(sx, iters=400, learning_rate=0.08)
+    og = OpenGRAPE(H0=0.5 * sz, Hc=[sx], dt=0.2, n_steps=30, c_ops=[0.3 * sm],
+                   device=device)
+    rho0 = np.diag([1.0, 0.0]).astype(complex)
+    e1 = np.array([0.0, 1.0], complex)
+    uo, hist["open"] = og.optimize(
+        lambda u: 1.0 - og.fidelity_state(u, rho0, e1),
+        1e-2 * np.ones((30, 1)), iters=250, learning_rate=0.08)
+    nums["state"] = float(hist["state"][-1])
+    nums["gate"] = float(hist["gate"][-1])
+    nums["p_driven"] = float(og.fidelity_state(uo, rho0, e1))
+    nums["p_free"] = float(og.fidelity_state(np.zeros((30, 1)), rho0, e1))
+    for k, ok in (("state", nums["state"] > 0.999),
+                  ("gate", nums["gate"] > 0.999),
+                  ("open", nums["p_driven"] > nums["p_free"] + 0.5)):
+        if not ok:
+            raise AssertionError(f"optimal_control_grape.py {k} on {device}: "
+                                 f"{nums}")
+    return nums, hist
+
+
+def rate_fit(device, iters):
+    """examples/optimal_control_grape.py step 3: recover gamma = 0.25 by
+    backpropagating through LindbladSolver (kernel='cuda', the default)."""
+    from pyqed_tpu_torch import LindbladSolver
+    from pyqed_tpu_torch.control import fit
+    sz = torch.as_tensor(np.diag([1.0, -1.0]).astype(complex), device=device)
+    sm = torch.as_tensor(np.array([[0.0, 1.0], [0.0, 0.0]], complex),
+                         device=device)
+    proj1 = np.diag([0.0, 1.0]).astype(complex)
+
+    def trace_of(gamma):
+        sol = LindbladSolver(0.5 * sz, c_ops=[torch.sqrt(gamma) * sm],
+                             device=device)
+        res = sol.run(proj1, dt=0.05, Nt=120, e_ops=[proj1], nout=4)
+        return res.observables[:, 0].real
+
+    y = trace_of(torch.tensor(0.25, dtype=torch.float64, device=device))
+    lg, losses = fit(lambda lg: torch.mean((trace_of(torch.exp(lg)) - y) ** 2),
+                     np.log(0.05), iters=iters, learning_rate=0.1,
+                     device=device)
+    return float(torch.exp(lg)), losses
+
+
+def dimer_trace(kernel, gamma):
+    """The excited-state population of config #2's dimer over CTL_LB_NT
+    steps, its jump operator scaled by sqrt(gamma / 0.01) (gamma = 0.01
+    is bench.py's operator)."""
+    from pyqed_tpu_torch import LindbladSolver
+    H, c, rho0, _ = dimer_problem(LB_NVIB)
+    n = H.shape[0]
+    pe = np.diag((np.arange(n) >= n // 2).astype(float))
+    c = torch.as_tensor(c / 0.1, dtype=torch.complex128, device=DEVICE)
+    sol = LindbladSolver(H, [torch.sqrt(gamma) * c], kernel=kernel,
+                         device=DEVICE)
+    res = sol.run(rho0, dt=CTL_LB_DT, Nt=CTL_LB_NT, e_ops=[pe], nout=10)
+    return res.observables[:, 0].real
+
+
+def dimer_rate_grad(kernel, y, log_gamma):
+    """The misfit of the dimer's trace at exp(log_gamma) against ``y`` and
+    its derivative in log_gamma."""
+    lg = torch.tensor(log_gamma, dtype=torch.float64, device=DEVICE,
+                      requires_grad=True)
+    loss = torch.mean((dimer_trace(kernel, torch.exp(lg)) - y) ** 2)
+    (g,) = torch.autograd.grad(loss, lg)
+    return loss.item(), g.item()
+
+
+def phase_control(card):
+    """control/ on the card: examples/optimal_control_grape.py's three
+    problems (the example's asserts; loss histories card vs CPU 1e-8, the
+    rate fit over its first iterations), OpenGRAPE state transfer on config
+    #2's dimer (n = 16, Liouville 256 x 256, 100 slices; card vs CPU over
+    the first iterations), the n = 16 rate fit through the commutator
+    kernel (gradient vs kernel='matmul' 1e-10; launches 4 Nt forward and
+    4 Nt - 1 backward per evaluation: the first right-hand side sees a
+    constant rho0), and the kernel's backward against the plain version's
+    autograd at n = 16, 1024, 2048 (c128 1e-12, c64 1e-5)."""
+    from pyqed_tpu_torch.control import OpenGRAPE
+    from pyqed_tpu_torch.ops import kernels as kn
+    out = {}
+    reset_counts()
+    (nums, hist), wall = timed(lambda: grape_examples(DEVICE))
+    no_launches("GRAPE examples")
+    nums_h, hist_h = grape_examples("cpu")
+    out["grape_examples"] = dict(nums, card_s=wall)
+    log(f"[control] optimal_control_grape.py on the card in {wall:.2f} s: "
+        f"{nums} ({card})")
+    out["grape_vs_cpu"] = gate("control", "GRAPE/OpenGRAPE loss histories "
+                               "card vs CPU", max((hist[k].cpu() - hist_h[k])
+                                                  .abs().max().item()
+                                                  for k in hist), 1e-8)
+    (gamma, losses), wall = timed(lambda: rate_fit(DEVICE, CTL_FIT_ITERS))
+    out["rate_fit"] = dict(gamma=gamma, s=wall,
+                           per_iter_ms=wall / CTL_FIT_ITERS * 1e3)
+    log(f"[control] rate fit through LindbladSolver (n = 2), {CTL_FIT_ITERS} "
+        "iterations "
+        f"in {wall:.2f} s: gamma {gamma:.6f} (true 0.25) ({card})")
+    if not abs(gamma - 0.25) < 5e-3:
+        raise AssertionError(f"rate fit on the card: gamma {gamma}")
+    _, losses_h = rate_fit("cpu", CTL_FIT_CPU_ITERS)
+    out["rate_fit"]["vs_cpu"] = gate(
+        "control", f"rate fit losses card vs CPU, first {CTL_FIT_CPU_ITERS}",
+        (losses[:CTL_FIT_CPU_ITERS].cpu() - losses_h).abs().max().item()
+        / losses_h.abs().max().item(), 1e-8)
+    # ---- OpenGRAPE on config #2's dimer
+    H, c, rho0, _ = dimer_problem(LB_NVIB)
+    n = H.shape[0]
+    nv = n // 2
+    mu = np.zeros((n, n))
+    mu[:nv, nv:] = mu[nv:, :nv] = np.eye(nv)
+    pe = np.diag((np.arange(n) >= nv).astype(float))
+    g0 = np.zeros((n, n))
+    g0[0, 0] = 1.0
+    runs = {}
+    for dev, iters in ((DEVICE, CTL_OG_ITERS), ("cpu", CTL_OG_CPU_ITERS)):
+        og = OpenGRAPE(H0=H, Hc=[0.1 * mu], dt=0.5, n_steps=CTL_OG_STEPS,
+                       c_ops=[c], device=dev)
+        runs[dev] = timed(lambda: og.optimize(
+            lambda u: 1.0 - og.fidelity_state(u, g0, pe),
+            np.full((CTL_OG_STEPS, 1), 0.5), iters=iters,
+            learning_rate=0.2))
+    (u, l), wall = runs[DEVICE]
+    out["open_grape_dimer"] = dict(n=n, steps=CTL_OG_STEPS,
+                                   iters=CTL_OG_ITERS,
+                                   ms_per_iter=wall / CTL_OG_ITERS * 1e3,
+                                   loss_first=l[0].item(),
+                                   loss_last=l[-1].item())
+    log(f"[control] OpenGRAPE dimer n={n} (Liouville {n * n}^2), "
+        f"{CTL_OG_STEPS} slices: {CTL_OG_ITERS} iterations at "
+        f"{wall / CTL_OG_ITERS * 1e3:.1f} ms; excited population "
+        f"{1 - l[0].item():.4f} -> {1 - l[-1].item():.4f} ({card})")
+    if not (torch.isfinite(l).all() and l[-1] < l[0]):
+        raise AssertionError(f"OpenGRAPE dimer: losses {l.tolist()}")
+    (_, l_h), _ = runs["cpu"]
+    out["open_grape_dimer"]["vs_cpu"] = gate(
+        "control", f"OpenGRAPE dimer losses card vs CPU, first "
+        f"{CTL_OG_CPU_ITERS}", (l[:CTL_OG_CPU_ITERS].cpu() - l_h).abs().max()
+        .item(), 1e-8)
+    # ---- the n = 16 rate fit through the kernel: gradient and launches
+    with torch.no_grad():
+        y = dimer_trace("matmul", torch.tensor(0.01, dtype=torch.float64,
+                                               device=DEVICE))
+    reset_counts()
+    (loss_k, grad_k), wall = timed(lambda: dimer_rate_grad(
+        "cuda", y, np.log(0.02)))
+    counts = read_counts()
+    bwd = kn.liouvillian_commutator.backward_launches
+    expect_only(counts, "liouvillian_commutator", 4 * CTL_LB_NT,
+                "rate fit n = 16, forward")
+    expect_only({"backward": bwd}, "backward", 4 * CTL_LB_NT - 1,
+                "rate fit n = 16, backward")
+    loss_m, grad_m = dimer_rate_grad("matmul", y, np.log(0.02))
+    out["dimer_rate_fit"] = dict(
+        loss=loss_k, grad=grad_k, forward_launches=counts[
+            "liouvillian_commutator"], backward_launches=bwd, s=wall)
+    log(f"[control] rate fit n=16 ({CTL_LB_NT} steps): loss {loss_k:.6e}, "
+        f"d/dlog(gamma) {grad_k:.12e} (matmul {grad_m:.12e}); launches "
+        f"{counts['liouvillian_commutator']} forward, {bwd} backward; "
+        f"{wall:.2f} s ({card})")
+    out["dimer_rate_fit"]["grad_vs_matmul"] = gate(
+        "control", "rate fit n = 16 gradient cuda vs matmul (rel)",
+        abs(grad_k - grad_m) / abs(grad_m), 1e-10)
+    out["backward"] = commutator_backward_parity()
+    return out
+
+
+def commutator_backward_parity():
+    """The commutator's backward (one launch of the kernel on -H_eff^dag)
+    against the plain version's autograd, gradients in rho and in H_eff."""
+    from pyqed_tpu_torch.ops import kernels as kn
+    errs = {}
+    for n in CTL_BWD_SIZES:
+        for dtype, tol in ((torch.complex128, 1e-12),
+                           (torch.complex64, 1e-5)):
+            H, rho = commutator_inputs(n, dtype)
+            g, _ = commutator_inputs(n, dtype, seed=SEED + 1)
+            H.requires_grad_(True)
+            rho.requires_grad_(True)
+            reset_counts()
+            got = torch.autograd.grad(kn.liouvillian_commutator(H, rho),
+                                      (H, rho), g)
+            if H.is_cuda and kn.liouvillian_commutator.backward_launches != 1:
+                raise AssertionError("the backward did not launch the kernel")
+            want = torch.autograd.grad(kn.liouvillian_commutator_ref(H, rho),
+                                       (H, rho), g)
+            for name, a, b in (("d/drho", got[1], want[1]),
+                               ("d/dH", got[0], want[0])):
+                errs[(n, dtype, name)] = check_close(
+                    f"liouvillian_commutator backward {name} n={n} "
+                    f"{str(dtype)[6:]}", a, b, tol)
+            del H, rho, g, got, want
+    return errs
+
+
+def commutator_backward_timing(card, n=1024):
+    """One backward call (the kernel on -H_eff^dag and g) against the plain
+    version's backward for rho and two ZGEMMs, in turns."""
+    from pyqed_tpu_torch.ops import kernels as kn
+    H, g = commutator_inputs(n, torch.complex128)
+    Hm = (-H.mH).contiguous()
+
+    def kernel():
+        return kn._commutator_launch(Hm, g)
+
+    def plain():
+        return 1j * (H.mH @ g - g @ H)
+
+    t = dict(plain=[], kernel=[], library=[])
+    for which, fn in (("plain", plain), ("kernel", kernel),
+                      ("library", lambda: commutator_library(Hm, g)),
+                      ("kernel", kernel), ("plain", plain)):
+        t[which].append(event_ms(fn, (), iters=20, warmup=3))
+    b = commutator_bound(n, torch.complex128)
+    log(f"[time] liouvillian_commutator backward n={n} complex128: kernel "
+        + " / ".join(f"{x:.3f}" for x in t["kernel"]) + " ms, plain "
+        + " / ".join(f"{x:.3f}" for x in t["plain"]) + f" ms, two ZGEMMs "
+        f"{t['library'][0]:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) ({card})")
+    return dict(ms=min(t["kernel"]), plain_ms=min(t["plain"]),
+                library_ms=t["library"][0], bound=b)
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_environment()
@@ -3835,7 +4459,8 @@ def main():
               "ldr": phase_ldr(card), "open": phase_open(card),
               "nonadiabatic": phase_nonadiabatic(card),
               "field2des": phase_field2des(card),
-              "grid": phase_grid_rest(card)}
+              "grid": phase_grid_rest(card),
+              "tn": phase_tn(card), "control": phase_control(card)}
     times = phase_timing(card, shapes)
     spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0
@@ -3937,6 +4562,27 @@ def main():
         "bound_by": t["bound"][1],
         "library_ms": t["library_ms"],
     })
+    t = commutator_backward_timing(card)
+    kernels.append({
+        "name": "liouvillian_commutator_backward",
+        "route": "cuda",
+        "source": "pyqed_tpu_torch/csrc/liouvillian.cu",
+        "replaces": "pyqed_tpu/ops/pallas_kernels.py:364",
+        "launches": slices["control"]["dimer_rate_fit"]["backward_launches"],
+        "max_abs_err": slices["control"]["backward"][
+            (1024, torch.complex128, "d/drho")],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1],
+        "library_ms": t["library_ms"],
+        "shape": [1024, 1024],
+        "note": "the same kernel on -H_eff^dag and the cotangent: the "
+                "gradient of the commutator with respect to rho",
+    })
+    slices["control"]["backward"] = {
+        f"{n} {str(d)[6:]} {w}": e
+        for (n, d, w), e in slices["control"]["backward"].items()}
     slices["script_s"] = time.perf_counter() - t_start
     log(f"[done] chip_smoke.py {slices['script_s']:.1f} s, the build "
         f"included ({card})")

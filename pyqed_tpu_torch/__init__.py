@@ -62,6 +62,17 @@ Ported so far:
   one hierarchy state: with ``kernel='cuda'`` one launch of the HEOM
   coupling kernel per right-hand side covers the batch.
 
+- tensor networks and optimal control: ``tn`` (MPS/MPO, two-site DMRG,
+  TEBD, TDVP, autoMPO, the ab initio MPOs, TT-LDR and ``VibronicMPS``;
+  ``DMRGQC`` waits for ``qchem``) and ``control`` (GRAPE, OpenGRAPE,
+  CRAB, Krotov, ``fit``). No TPU kernel lies on tn/; ``control`` runs
+  ``torch.autograd`` through the solvers, and the commutator kernel's
+  wrapper carries a backward (one more launch of the same kernel).
+
+The package surface mirrors ``pyqed_tpu``'s for every ported module
+(``tests/test_torch_surface.py``); ``use_x64``/``x64_enabled`` are
+accepted and change nothing, since torch always has float64.
+
 Entry points run on the card (``device=None`` means ``cuda`` and raises
 without one) unless the caller passes ``device="cpu"``. The package
 imports torch, NumPy and SciPy, never JAX or ``pyqed_tpu``.
@@ -70,6 +81,9 @@ imports torch, NumPy and SciPy, never JAX or ``pyqed_tpu``.
 __version__ = "0.1.0"
 
 from . import units
+from .units import *  # noqa: F401,F403 — constants namespace, as in pyqed_tpu
+from .config import use_x64, x64_enabled, default_complex, default_real
+from .ops import *  # noqa: F401,F403 — the ported names of pyqed_tpu.ops
 from .core.result import Result, load_result
 from .models.named import (FMO, Frenkel, Frenkel2, Frenkel2s, Frenkel2_s,
                            HarmonicOscillator, Morse, TFIM, HeisenbergModel,
@@ -82,7 +96,7 @@ from .models.pulse import (
     field_to_intensity, fwhm_to_std, std_to_fwhm,
 )
 from .models.cavity import Cavity, Composite, Polariton, QRM
-from .open.bath import DrudeBath
+from .open.bath import DrudeBath, OhmicBath
 from .open.heom import HEOMSolver, HEOMSolverDrude, solver_from_reference
 from .grid import SPO, SPO2, SPO3, SPON, SPO2NH, ResultSPO, LDRN
 from .grid import (FSSH, Ehrenfest, NAMD, tully_i, tully_ii, tully_iii,
@@ -96,7 +110,6 @@ from . import utils
 from .grid import SincDVR, SineDVR, HermiteDVR, ExponentialDVR, ChebDVR
 from .ops.wavepacket import gwp
 from .ops.davidson import davidson, block_davidson
-from .config import default_complex, default_real
 from .open.lindblad import (LindbladSolver, LiouvilleSolver, Lindblad_solver,
                             driven_dissipative_dynamics, absorption_eseries)
 from .open.redfield import RedfieldSolver, redfield_tensor
@@ -106,28 +119,10 @@ from .open.mcwf import MCWFSolver, mcsolve
 from . import signal
 from . import floquet
 from . import tn
-from .ops.linalg import (
-    dag, dagger, commutator, comm, anticommutator, anticomm, tensor,
-    tensor_power, ptrace, transform, basis_transform, obs, obs_dm, expect,
-    overlap, ket2dm, norm, rk4, isherm, isunitary, isdiag, project, sort_eig,
-    eigh, eig_asymm, lindbladian, ldo,
-)
+from . import control
 from .ops.linalg import sort_eig as sort   # reference: pyqed/phys.py:554
 from .ops.operators import (
-    pauli, sigmax, sigmay, sigmaz, sigmam, sigmap, destroy, create, basis,
-    coh_op, jump, ham_ho, boson, quadrature, position, momentum, num,
-    thermal_dm, spin_ops, multispin, multiboson, multimode, delta,
-    displace, coherent, coherent_dm, lowering, raising, multi_spin, norm2,
-    is_positive_def, direct_product, jacobi_anger, propagator,
-    propagator_H_const,
+    lowering, raising, multi_spin, norm2, is_positive_def, direct_product,
+    jacobi_anger, propagator, propagator_H_const,
 )
-from .ops.superoperator import (
-    dm2vec, vec2dm, vec2mat, operator_to_vector, left, right,
-    operator_to_superoperator, op2sop, to_super, lindblad_dissipator, kraus,
-    liouvillian, liouvillian_action, lindbladian_action, obs_vec, trace_vec,
-    resolvent,
-)
-from .ops.expm import (
-    expm_eig, expm_herm, propagators, expm_multiply_taylor,
-    krylov_expm_multiply, chebyshev_expm_multiply, expm,
-)
+from .ops.expm import chebyshev_expm_multiply

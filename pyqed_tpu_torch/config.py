@@ -40,6 +40,18 @@ def complex_dtype_for(*arrays) -> torch.dtype:
     return torch.complex128
 
 
+def use_x64(enable: bool = True) -> None:
+    """Accepted for the JAX package's surface and does nothing: torch
+    runs float64 and complex128 on the CPU and CUDA alike, so precision
+    follows the inputs (``enable=False`` does not switch to 32 bits)."""
+
+
+def x64_enabled() -> bool:
+    """Always True: float64/complex128 are always available in torch (the
+    JAX package's switch, ``jax_enable_x64``, has no counterpart)."""
+    return True
+
+
 def default_real() -> torch.dtype:
     """The real dtype a constructor uses when none is given: float64, as
     the JAX package's ``default_real()`` under x64."""

@@ -556,6 +556,18 @@ def _launch_on(index, launch):
         return launch(_raw_stream(index))
 
 
+def _refuse_grad(fn, *tensors):
+    """Raise where autograd would need a backward through ``fn``'s CUDA
+    kernel, which has none: the kernel writes its output through a raw
+    pointer, so a gradient through it would be lost without a word. The
+    plain version (CPU tensors) is differentiable."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{fn}: the CUDA kernel has no backward, and an input requires "
+            "grad; call it under torch.no_grad() or use its plain version "
+            f"({fn}_ref) to differentiate")
+
+
 def heom_coupling(F, nbr, w, OpT, plan=None):
     """HEOM coupling term, out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j]
     (for a batch, out[d, b] = Σ_j w[d, j] F[nbr[d, j], b] @ OpT[j]).
@@ -605,7 +617,9 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
     (counted in ``heom_coupling.launches``, one per right-hand side, so an
     RK4 run counts 4 per step; the destination-major launches also in
     ``heom_coupling.batched_launches``) or raises; a hierarchy without
-    edges (one ADO) launches nothing and returns zeros.
+    edges (one ADO) launches nothing and returns zeros. The kernel has no
+    backward: on CUDA it raises when grad is enabled and F, w or OpT
+    requires grad.
     """
     if plan is None:
         _check_graph(nbr, w)
@@ -616,6 +630,7 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
     _check_operands(F, OpT, nbr, w)
     if not F.is_cuda:
         return heom_coupling_ref(F, nbr, w, OpT)
+    _refuse_grad("heom_coupling", F, w, OpT)
     if plan is None:
         plan = heom_coupling_plan(nbr, w)
     return _coupling_launch(F, OpT, plan, coupling_batched(F))
@@ -805,12 +820,14 @@ def spo_phase_multiply(expK, psik):
     batched FFT over the grid axes returns); the result has psik's
     layout. On the CPU this is :func:`spo_phase_multiply_ref`; on CUDA it
     launches ``csrc/spo.cu`` (counted in ``spo_phase_multiply.launches``)
-    or raises.
+    or raises, also when grad is enabled and an input requires
+    grad (the kernel has no backward).
     """
     fn = "spo_phase_multiply"
     layout = _check_spo_args(fn, expK, psik, psik.shape[:-1])
     if psik.device.type == "cpu":
         return spo_phase_multiply_ref(expK, psik)
+    _refuse_grad(fn, expK, psik)
     return _launch_spo("spo_phase", spo_phase_multiply, expK, psik, layout)
 
 
@@ -827,13 +844,15 @@ def spo_potential_apply(expV, psi):
     states last or states first in memory; the result has psi's layout.
     On the CPU this is :func:`spo_potential_apply_ref`; on CUDA it
     launches ``csrc/spo.cu`` (counted in ``spo_potential_apply.launches``)
-    or raises.
+    or raises, also when grad is enabled and an input requires
+    grad (the kernel has no backward).
     """
     fn = "spo_potential_apply"
     ns = psi.shape[-1] if psi.dim() else 0
     layout = _check_spo_args(fn, expV, psi, tuple(psi.shape) + (ns,))
     if psi.device.type == "cpu":
         return spo_potential_apply_ref(expV, psi)
+    _refuse_grad(fn, expV, psi)
     return _launch_spo("spo_potential", spo_potential_apply, expV, psi,
                        layout)
 
@@ -873,6 +892,62 @@ def _check_commutator_args(Heff, rho):
         raise ValueError(f"{fn}: no kernel for device {rho.device}")
 
 
+def _commutator_launch(Heff, rho):
+    """One launch of ``csrc/liouvillian.cu`` on checked CUDA operands (not
+    counted here)."""
+    from . import _cuda_lib
+    lib = _cuda_lib.load("liouvillian").lib
+    fn = (lib.liouvillian_commutator_c128 if rho.dtype == torch.complex128
+          else lib.liouvillian_commutator_c64)
+    out = torch.empty_like(rho)
+    n = rho.shape[0]
+    if n == 0:
+        return out
+    err = _launch_on(rho.get_device(), lambda stream: fn(
+        Heff.data_ptr(), rho.data_ptr(), out.data_ptr(), n, stream))
+    if err != 0:
+        raise RuntimeError(f"liouvillian_commutator: kernel launch failed "
+                           f"with CUDA error {err}")
+    return out
+
+
+def _commutator_apply(Heff, rho):
+    """−i(H_eff ρ − ρ H_eff†): the plain version on the CPU, one launch of
+    the kernel on CUDA."""
+    if rho.device.type == "cpu":
+        return liouvillian_commutator_ref(Heff, rho)
+    return _commutator_launch(Heff, rho)
+
+
+class _Commutator(torch.autograd.Function):
+    """K(H, ρ) = −i(Hρ − ρH†) with a backward. K is linear in ρ, and its
+    adjoint g ↦ i(H†g − gH) is K(−H†, g): the gradient with respect to ρ
+    is one more call of the same map, on CUDA one more launch of the same
+    kernel. The gradient with respect to H under PyTorch's
+    conjugate-Wirtinger convention is i(g ρ† + g† ρ), two plain
+    products (the JAX package never hands H_eff to Pallas with a
+    gradient, so this operand has no kernel to follow)."""
+
+    @staticmethod
+    def forward(ctx, Heff, rho):
+        ctx.save_for_backward(Heff, rho)
+        return _commutator_apply(Heff, rho)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        Heff, rho = ctx.saved_tensors
+        g = g.resolve_conj().resolve_neg().contiguous()
+        gH = grho = None
+        if ctx.needs_input_grad[1]:
+            grho = _commutator_apply((-Heff.mH).contiguous(), g)
+            if grho.is_cuda and grho.numel():
+                liouvillian_commutator.backward_launches += 1
+        if ctx.needs_input_grad[0]:
+            gH = 1j * (g @ rho.mH + g.mH @ rho)
+        return gH, grho
+
+
 def liouvillian_commutator(Heff, rho):
     """Coherent part of the Lindblad right-hand side,
     out = −i(H_eff ρ − ρ H_eff†), with H_eff non-Hermitian.
@@ -891,29 +966,25 @@ def liouvillian_commutator(Heff, rho):
     Heff and rho: contiguous (n, n), both complex128 or both complex64,
     on one device. On the CPU this is :func:`liouvillian_commutator_ref`;
     on CUDA it launches the kernel (counted in
-    ``liouvillian_commutator.launches``) or raises.
+    ``liouvillian_commutator.launches``) or raises. Both arguments carry
+    gradients on either device, through one ``torch.autograd.Function``
+    (:class:`_Commutator`) taken when grad is enabled and an argument
+    requires it: the gradient with respect to ρ is one more call of the
+    same map on −H_eff†, on CUDA a launch of the same kernel, counted
+    apart in ``liouvillian_commutator.backward_launches``.
     """
     _check_commutator_args(Heff, rho)
-    if rho.device.type == "cpu":
-        return liouvillian_commutator_ref(Heff, rho)
-    from . import _cuda_lib
-    lib = _cuda_lib.load("liouvillian").lib
-    fn = (lib.liouvillian_commutator_c128 if rho.dtype == torch.complex128
-          else lib.liouvillian_commutator_c64)
-    out = torch.empty_like(rho)
-    n = rho.shape[0]
-    if n == 0:
-        return out
-    err = _launch_on(rho.get_device(), lambda stream: fn(
-        Heff.data_ptr(), rho.data_ptr(), out.data_ptr(), n, stream))
-    if err != 0:
-        raise RuntimeError(f"liouvillian_commutator: kernel launch failed "
-                           f"with CUDA error {err}")
-    liouvillian_commutator.launches += 1
+    if torch.is_grad_enabled() and (Heff.requires_grad or rho.requires_grad):
+        out = _Commutator.apply(Heff, rho)
+    else:
+        out = _commutator_apply(Heff, rho)
+    if rho.is_cuda and rho.numel():
+        liouvillian_commutator.launches += 1
     return out
 
 
 liouvillian_commutator.launches = 0
+liouvillian_commutator.backward_launches = 0
 
 
 def liouvillian_matvec(H, c_ops=None, use_kernel=None):

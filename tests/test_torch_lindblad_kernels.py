@@ -26,14 +26,15 @@ from pyqed_tpu.ops import operators as j_ops
 from pyqed_tpu.ops import pallas_kernels as pk
 from pyqed_tpu.ops import superoperator as j_sop
 from pyqed_tpu_torch.ops import _cuda_lib
-from pyqed_tpu_torch.ops import expm as t_expm
 from pyqed_tpu_torch.ops import kernels as kn
 from pyqed_tpu_torch.ops import linalg as t_linalg
 from pyqed_tpu_torch.ops import operators as t_ops
 from pyqed_tpu_torch.ops import superoperator as t_sop
 
-# the module, not the function that pyqed_tpu.ops exports under its name
+# the modules, not the functions that pyqed_tpu.ops and pyqed_tpu_torch.ops
+# export under their name
 j_expm = importlib.import_module("pyqed_tpu.ops.expm")
+t_expm = importlib.import_module("pyqed_tpu_torch.ops.expm")
 
 RTOL = 1e-12         # kernels, right-hand sides, exact algebra (c128)
 RTOL_C64 = 1e-5      # kernels at complex64

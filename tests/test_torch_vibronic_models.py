@@ -138,8 +138,10 @@ def test_pyrazine4_and_spin_vibronic_match_jax():
     assert rel_err(tm.dpes(*args), J(jm.dpes, *args)) < 1e-14
     for a, b in zip(tm.lvc()[2], jm.lvc()[2]):
         assert np.array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.spectral_dynamics()
+    # tn/vibronic is ported: JAX parity is in tests/test_torch_tn.py
+    times, pops = tm.spectral_dynamics(nb=2, chi_max=4, nt=1, nout=1)
+    assert pops.shape == (2, 3) and times.shape == (2,)
+    assert rel_err(pops.sum(1), np.ones(2)) < 1e-10
     x = np.linspace(-4, 4, 12)
     js, ts = jvib.SpinVibronic(), tvib.SpinVibronic(device=CPU)
     V, A, P = J(lambda: (js.buildV(x, x), js.apes(x, x),
