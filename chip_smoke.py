@@ -180,6 +180,22 @@ nonzero:
      with launches exactly 4 x Nt forward and 4 x Nt - 1 backward, and
      the commutator's backward against the plain version's autograd at
      n = 16, 1024 and 2048 (c128 <= 1e-12, c64 <= 1e-5);
+   - quantum chemistry (``phase_qchem``): benzene (D6h) RHF/6-31G*
+     (102 AOs; the host integrals: the C++ ERI engine and the
+     derivative-ERI builder built with g++, SCF, MP2, TDA and TDHF with 6
+     singlet roots, the analytic gradient, the CPHF polarizability,
+     Mulliken/IAO charges, Boys orbitals), RKS/B3LYP on the default
+     Becke grid (282,240 points) and its analytic gradient, each against
+     the port on the host's CPU (SCF energies <= 1e-10, densities and
+     orbital energies <= 1e-8, post-SCF methods from the card's orbitals
+     <= 1e-10, gradients <= 1e-9, summed oscillator strengths of
+     degenerate sets <= 1e-8); CCSD/6-31G (132 spin orbitals):
+     converged to 1e-10 and equal to MP2 at the MP2 amplitudes
+     (<= 1e-10), seconds an iteration and busy share; water CCSD and (T)
+     (6-31G**), EOM-CCSD, FCI, CASCI and CASSCF (STO-3G) card vs CPU;
+     examples/qchem_water.py's pipeline, a GeometryOptimizer run, the
+     STO-3G Hessian card vs CPU and DMRGQC on H4 against FCI (<= 1e-8);
+     no kernel launches;
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -214,8 +230,9 @@ The line before the last is a JSON summary of the kernels (the generic
 SPO branch as ``spo_potential_generic``, timed at the main path's
 1,024 x 10 with its 2^20-point times beside; the batched coupling as
 ``heom_coupling_batched``), with the 2DES, DEOM, driven-HEOM, polariton,
-LDR, open, nonadiabatic, field-2DES, grid, tn and control gates and
-times under "slices";
+LDR, open, nonadiabatic, field-2DES, grid, tn, control and qchem gates and
+times under "slices" (each phase's seconds under "phase_s", also logged
+as it ends);
 the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
 printing any result.
@@ -4432,44 +4449,395 @@ def commutator_backward_timing(card, n=1024):
                 library_ms=t["library"][0], bound=b)
 
 
+# ------------------------------------------------------------- qchem
+QC_BASIS = "6-31g*"           # benzene RHF and RKS: 102 Cartesian AOs
+QC_CC_BASIS = "6-31g"         # benzene CCSD: 66 AOs, 132 spin orbitals
+QC_NROOTS = 6                 # TDA/TDHF singlet roots
+QC_XC = "b3lyp"
+QC_GRID = dict(n_rad=60, n_theta=14)   # RKS's default: 282,240 points
+QC_WATER = [("O", (0.0, 0.0, 0.0)), ("H", (0.0, -1.43, 1.11)),
+            ("H", (0.0, 1.43, 1.11))]  # examples/qchem_water.py
+QC_WATER_CC_BASIS = "6-31g**"  # CCSD and (T), card vs CPU
+QC_WATER_DET_BASIS = "sto-3g"  # EOM-CCSD, FCI, CASCI, CASSCF, the Hessian
+QC_OPT_BASIS = "6-31g"         # GeometryOptimizer from the example's start
+QC_H4 = [("H", (0.0, 0.0, 1.8 * i)) for i in range(4)]  # ab_initio_dmrg.py
+
+
+def benzene():
+    """D6h benzene in the xy plane: C at 2.634 bohr and H at 4.686 bohr
+    from the centre."""
+    ang = np.arange(6) * np.pi / 3
+    return ([("C", (2.634 * np.cos(a), 2.634 * np.sin(a), 0.0)) for a in ang]
+            + [("H", (4.686 * np.cos(a), 4.686 * np.sin(a), 0.0))
+               for a in ang])
+
+
+QC_MOLECULE = benzene
+
+
+def qc_on_cpu(mf, cpu_mol, cls, **kw):
+    """The card mean field's orbitals on the CPU twin: the CPU runs of the
+    post-SCF methods start from the same orbitals as the card's."""
+    from pyqed_tpu_torch.qchem import scf_from_reference
+
+    def h(x):
+        return (tuple(y.cpu().numpy() for y in x)
+                if isinstance(x, (tuple, list)) else x.cpu().numpy())
+    return scf_from_reference(cpu_mol, cls, mo_coeff=h(mf.mo_coeff),
+                              mo_energy=h(mf.mo_energy), dm=h(mf.dm),
+                              nocc=mf.nocc, e_tot=mf.e_tot,
+                              converged=mf.converged, **kw)
+
+
+def qc_abs(a, b):
+    def h(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+    return float(np.max(np.abs(h(a) - h(b))))
+
+
+def degenerate_sums(e, f, n, tol=1e-5):
+    """(energy, summed f) of each set of roots within ``tol`` of each
+    other among the first ``n``; a set that may continue past the last
+    computed root is dropped. Card and CPU ``eigh`` may rotate inside a
+    degenerate set, the sums do not change."""
+    e, f = np.asarray(e), np.asarray(f)
+    out, start = [], 0
+    for k in range(1, len(e) + 1):
+        if k == len(e) or e[k] - e[k - 1] > tol:
+            if k <= n and k < len(e):
+                out.append((float(e[start:k].mean()), float(f[start:k].sum())))
+            start = k
+    return out
+
+
+def qc_stage(out, name, fn):
+    """Run one stage, record and print its seconds."""
+    res, wall = timed(fn)
+    out.setdefault("stage_s", {})[name] = wall
+    log(f"[qchem] {name}: {wall:.2f} s")
+    return res
+
+
+def phase_qchem(card):
+    """qchem/ on the card at full width: benzene (D6h) RHF/6-31G* (102
+    Cartesian AOs) — the host integrals and the C++ ERI engine (the ERI
+    and the 2.6 GB dERI), SCF, MP2, TDA and TDHF (6 singlet roots), the
+    analytic gradient, the CPHF
+    polarizability, Mulliken/IAO charges and Boys localisation; RKS/B3LYP
+    on the default Becke grid and its analytic gradient; CCSD/6-31G (132
+    spin orbitals). Each result but CCSD is held against the port on the
+    card host's CPU: the SCFs run on both, the post-SCF methods start on
+    the CPU from the card's orbitals; degenerate sets are compared
+    through invariants (energies, densities, summed oscillator strengths,
+    forces). The CCSD gates: converged to 1e-10 and its energy at the MP2
+    amplitudes equal to MP2's. Water holds CCSD, (T) (6-31G**), EOM-CCSD,
+    FCI, CASCI and CASSCF (STO-3G) card vs CPU; then the examples' paths
+    (qchem_water.py, a GeometryOptimizer run, the STO-3G Hessian and
+    DMRGQC on H4 against FCI). The CPU runs take over the card
+    molecule's host-built integrals (``Molecule.to``). Every gate's
+    reading is kept under "gates".
+    No hand-written kernel lies on this path: every launch count stays
+    0."""
+    from pyqed_tpu_torch import qchem as qc
+    from pyqed_tpu_torch.qchem import engine
+    from pyqed_tpu_torch.qchem.ci import CASSCF
+    from pyqed_tpu_torch.qchem.grad import (derivative_integrals, ks_gradient,
+                                            rhf_gradient)
+    from pyqed_tpu_torch.qchem.hessian import Hessian
+    from pyqed_tpu_torch.tn import DMRGQC
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()          # read by no_launches when the phase ends
+    out["gates"] = {}
+
+    def qgate(label, val, tol):
+        out["gates"][label] = gate("qchem", label, val, tol)
+
+    qc_stage(out, "ERI engine build (g++)", engine.build)
+    # ---------------------------------------------- benzene RHF/6-31G*
+    mol = qc.Molecule(QC_MOLECULE(), basis=QC_BASIS, device=DEVICE)
+    qc_stage(out, "benzene integrals (host) + copy", mol.intor)
+    out["integrals_s"] = dict(mol.intor_seconds)
+    log(f"[qchem] {QC_BASIS}: {mol.nao} AOs, {mol.nelec // 2} doubly "
+        f"occupied; host integrals: one-electron "
+        f"{mol.intor_seconds['one_electron']:.2f} s, ERI (C++ engine, "
+        f"{os.cpu_count()} host cores) {mol.intor_seconds['eri']:.2f} s, "
+        f"copy to the card {mol.intor_seconds['to_device']:.2f} s "
+        f"({mol.nao ** 4 * 8 / 1e9:.2f} GB)")
+    dE1 = qc_stage(out, "benzene derivative integrals (host; dERI by the "
+                        "C++ engine) + copy",
+                   lambda: derivative_integrals(mol))[3]
+    out["eri_deriv_gb"] = dE1.numel() * 8 / 1e9
+    del dE1
+    cmol = mol.to("cpu")        # the host-built integrals, not rebuilt
+    qc_stage(out, "RHF SCF (card, first: cuBLAS/cuSOLVER set-up)",
+             lambda: qc.RHF(mol).run())
+    mf = qc_stage(out, "RHF SCF (card)", lambda: qc.RHF(mol).run())
+    qgate("RHF converged (0 = yes)", float(not mf.converged), 0.0)
+    out["rhf"] = dict(e_tot=mf.e_tot, cycles=mf.cycles,
+                      s_per_cycle=out["stage_s"]["RHF SCF (card)"]
+                      / mf.cycles)
+    log(f"[qchem] RHF E = {mf.e_tot:.10f} in {mf.cycles} cycles, "
+        f"{out['rhf']['s_per_cycle'] * 1e3:.2f} ms a cycle ({card})")
+    cmf = qc_stage(out, "RHF SCF (CPU)", lambda: qc.RHF(cmol).run())
+    out["rhf"]["cpu_cycles"] = cmf.cycles
+    qgate("RHF energy card vs CPU", abs(mf.e_tot - cmf.e_tot), 1e-10)
+    qgate("RHF density card vs CPU", qc_abs(mf.dm, cmf.dm), 1e-8)
+    qgate("RHF orbital energies card vs CPU",
+          qc_abs(mf.mo_energy, cmf.mo_energy), 1e-8)
+    ref = qc_on_cpu(mf, cmol, qc.RHF)          # the card's orbitals
+
+    mp = qc_stage(out, "MP2 (card)", lambda: qc.MP2(mf).run())
+    cmp_ = qc.MP2(ref).run()
+    out["mp2"] = dict(e_corr=mp.e_corr)
+    qgate("MP2 e_corr card vs CPU", abs(mp.e_corr - cmp_.e_corr),
+          1e-10)
+    nr = QC_NROOTS + 4
+    td = qc.TDA(mf)
+    e_tda = qc_stage(out, "TDA (card)", lambda: td.run(nr))
+    e_tdhf = qc_stage(out, "TDHF (card)", lambda: qc.TDHF(mf).run(nr))
+    ctd = qc.TDA(ref)
+    qgate(f"TDA {QC_NROOTS} roots card vs CPU",
+          qc_abs(e_tda[:QC_NROOTS], ctd.run(nr)[:QC_NROOTS]), 1e-10)
+    qgate(f"TDHF {QC_NROOTS} roots card vs CPU",
+          qc_abs(e_tdhf[:QC_NROOTS], qc.TDHF(ref).run(nr)[:QC_NROOTS]),
+          1e-10)
+    g_card = degenerate_sums(e_tda, td.oscillator_strength(), QC_NROOTS)
+    g_cpu = degenerate_sums(ctd.e, ctd.oscillator_strength(), QC_NROOTS)
+    qgate("TDA summed oscillator strengths per degenerate set "
+          "card vs CPU", qc_abs([f for _, f in g_card],
+                                [f for _, f in g_cpu]), 1e-8)
+    out["tda"] = dict(e=e_tda[:QC_NROOTS].tolist(), sets=g_card,
+                      tdhf=e_tdhf[:QC_NROOTS].tolist())
+    log("[qchem] TDA singlets (eV, summed f): " + ", ".join(
+        f"{e * 27.211386:.4f} ({f:.4f})" for e, f in g_card))
+    alpha = qc_stage(out, "CPHF polarizability (card)",
+                     lambda: qc.polarizability_cphf(mf))
+    qgate("CPHF polarizability card vs CPU",
+          qc_abs(alpha, qc.polarizability_cphf(ref)), 1e-8)
+    out["cphf_alpha"] = np.diag(alpha).tolist()
+    q_m = qc.mulliken_charges(mf)
+    q_i = qc_stage(out, "IAO charges", lambda: qc.iao_charges(mf))
+    qgate("Mulliken charges card vs CPU",
+          qc_abs(q_m, qc.mulliken_charges(ref)), 1e-10)
+    qgate("IAO charges card vs CPU", qc_abs(q_i, qc.iao_charges(ref)),
+          1e-10)
+    L = qc_stage(out, "Boys localisation (host Jacobi sweeps)",
+                 lambda: qc.boys(mf))
+    spread = qc.lo.orbital_spread(mf, L)
+    qgate("Boys objective card vs CPU (relative)",
+          abs(spread - qc.lo.orbital_spread(ref, qc.boys(ref))) / abs(spread),
+          1e-8)
+    out["charges"] = dict(mulliken_C=float(q_m[0]), iao_C=float(q_i[0]))
+    del cmf, ctd
+    # ---------------------------------------------------- RKS/B3LYP
+    ks = qc_stage(out, f"RKS/{QC_XC} grid + AO values (card)",
+                  lambda: qc.RKS(mol, xc=QC_XC, **QC_GRID))
+    npts = int(ks.grid[1].shape[0])
+    qc_stage(out, f"RKS/{QC_XC} SCF (card, first)", ks.run)
+    qc_stage(out, f"RKS/{QC_XC} SCF (card)", ks.run)
+    qgate("RKS converged (0 = yes)", float(not ks.converged), 0.0)
+    out["rks"] = dict(e_tot=ks.e_tot, cycles=ks.cycles, points=npts,
+                      s_per_cycle=out["stage_s"][f"RKS/{QC_XC} SCF (card)"]
+                      / ks.cycles)
+    log(f"[qchem] RKS/{QC_XC} E = {ks.e_tot:.10f} on {npts} points in "
+        f"{ks.cycles} cycles, {out['rks']['s_per_cycle'] * 1e3:.2f} ms a "
+        f"cycle; AO values {ks.ao.numel() * 8 / 1e9:.2f} GB, gradients "
+        f"{ks.ao_grad.numel() * 8 / 1e9:.2f} GB ({card})")
+    cks = qc_stage(out, f"RKS/{QC_XC} SCF (CPU)",
+                   lambda: qc.RKS(cmol, xc=QC_XC, **QC_GRID).run())
+    qgate("RKS energy card vs CPU", abs(ks.e_tot - cks.e_tot), 1e-10)
+    qgate("RKS density card vs CPU", qc_abs(ks.dm, cks.dm), 1e-8)
+    del cks
+    # ------------------------------------------------ CCSD/6-31G
+    mcc = qc.Molecule(QC_MOLECULE(), basis=QC_CC_BASIS, device=DEVICE)
+    mfc = qc_stage(out, f"RHF/{QC_CC_BASIS} (integrals + SCF)",
+                   lambda: qc.RHF(mcc).run())
+    mp2c = qc.MP2(mfc).run()
+    cc = qc.CCSD(mfc)
+    f, g, o, v, d1, d2, no, nv = qc_stage(
+        out, "CCSD set-up (MO transform, <pq||rs>)", cc._setup)
+    log(f"[qchem] CCSD/{QC_CC_BASIS}: {f.shape[0]} spin orbitals, {no} "
+        f"occupied; <pq||rs> {g.numel() * 8 / 1e9:.2f} GB, vvvv "
+        f"{nv ** 4 * 8 / 1e9:.2f} GB")
+    qc_stage(out, "CCSD iterations (card)", cc.run)
+    qgate("CCSD converged (0 = yes)", float(not cc.converged), 0.0)
+    qgate("CCSD energy at the MP2 amplitudes vs MP2",
+          abs(cc.e_mp2 - mp2c.e_corr), 1e-10)
+    it_s = out["stage_s"]["CCSD iterations (card)"] / cc.cycles
+    t1, t2 = cc.t1, cc.t2
+
+    def update():
+        cc._update(t1, t2, f, g, o, v, d1, d2)
+
+    update()
+    _, wall = timed(update)
+    dev_us, rows = profile_steps(update, 1)
+    out["ccsd"] = dict(
+        e_corr=cc.e_corr, cycles=cc.cycles, s_per_iteration=it_s,
+        update_s=wall, device_s=dev_us / 1e6, busy=dev_us / 1e6 / wall)
+    log(f"[qchem] CCSD E_corr = {cc.e_corr:.10f} in {cc.cycles} iterations,"
+        f" {it_s * 1e3:.1f} ms an iteration (DIIS and the energy included);"
+        f" one amplitude update {wall * 1e3:.1f} ms wall, "
+        f"{dev_us / 1e3:.1f} ms device, busy share {out['ccsd']['busy']:.3f}"
+        f" ({card})")
+    for us_, count, key in rows[:6]:
+        log(f"[qchem]   {us_:9.1f} us x{count:<4g} {key[:80]}")
+    del cc, f, g, d1, d2, t1, t2, mfc, mcc, update
+    torch.cuda.empty_cache()
+    # ------------------------------------------ water card vs CPU
+    wm = qc.Molecule(QC_WATER, basis=QC_WATER_CC_BASIS, device=DEVICE)
+    wmf = wm.RHF().run()
+    wref = qc_on_cpu(wmf, wm.to("cpu"), qc.RHF)
+    wcc = qc_stage(out, f"water CCSD/{QC_WATER_CC_BASIS} (card)",
+                   lambda: qc.CCSD(wmf).run())
+    cwcc = qc.CCSD(wref).run()
+    qgate("water CCSD card vs CPU", abs(wcc.e_corr - cwcc.e_corr),
+          1e-10)
+    e_t = qc_stage(out, "water (T) (card)", wcc.ccsd_t)
+    qgate("water (T) card vs CPU", abs(e_t - cwcc.ccsd_t()), 1e-10)
+    out["water"] = dict(ccsd=wcc.e_corr, t=e_t)
+    sm = qc.Molecule(QC_WATER, basis=QC_WATER_DET_BASIS, device=DEVICE)
+    smf = sm.RHF().run()
+    sref = qc_on_cpu(smf, sm.to("cpu"), qc.RHF)
+    scc, cscc = qc.CCSD(smf).run(), qc.CCSD(sref).run()
+    e_eom = qc_stage(out, "water EOM-CCSD (determinant space)",
+                     lambda: qc.EOMCCSD(scc).run(4))
+    qgate("water EOM-CCSD card vs CPU",
+          qc_abs(e_eom, qc.EOMCCSD(cscc).run(4)), 1e-10)
+    e_fci = qc_stage(out, "water FCI (card eigh)",
+                     lambda: qc.FCI(smf).run(2))
+    qgate("water FCI card vs CPU", qc_abs(e_fci, qc.FCI(sref).run(2)),
+          1e-10)
+    qgate("water CASCI(4,4) card vs CPU",
+          qc_abs(qc.CASCI(smf, 4, 4).run(), qc.CASCI(sref, 4, 4).run()), 1e-10)
+    e_mc = qc_stage(out, "water CASSCF(2,2) (card)",
+                    lambda: CASSCF(smf, 2, 2).run())
+    qgate("water CASSCF card vs CPU", abs(e_mc - CASSCF(sref, 2, 2).run()),
+          1e-10)
+    out["water"].update(eom=np.asarray(e_eom).tolist(),
+                        fci=float(e_fci[0]), casscf=e_mc)
+    # ------------------------------------------------ the examples
+    pm = qc.Molecule(QC_WATER, basis="6-31g", device=DEVICE)
+    pmf = pm.RHF().run()
+    cpm = pm.to("cpu")
+    qgate("qchem_water.py RHF/6-31G card vs CPU",
+          abs(pmf.e_tot - qc.RHF(cpm).run().e_tot), 1e-10)
+    lda = qc_stage(out, "qchem_water.py LDA/STO-3G (card)",
+                   lambda: qc.RKS(sm).run())
+    qgate("qchem_water.py LDA card vs CPU",
+          abs(lda.e_tot - qc.RKS(sm.to("cpu")).run().e_tot), 1e-10)
+    pref = qc_on_cpu(pmf, cpm, qc.RHF)
+    qgate("qchem_water.py TDA card vs CPU",
+          qc_abs(qc.TDA(pmf).run(4), qc.TDA(pref).run(4)), 1e-10)
+    w_k, _ = qc.RXS(pmf, occidx=[0]).core_excitation(nstates=3)
+    w_c, _ = qc.RXS(pref, occidx=[0]).core_excitation(nstates=3)
+    qgate("qchem_water.py O K-edge card vs CPU", qc_abs(w_k, w_c),
+          1e-10)
+    out["examples"] = dict(rhf_631g=pmf.e_tot, lda=lda.e_tot,
+                           k_edge_ev=(np.asarray(w_k) * 27.211386).tolist())
+    opt = qc_stage(out, f"GeometryOptimizer water/{QC_OPT_BASIS} (card)",
+                   lambda: qc.GeometryOptimizer(
+                       QC_WATER, basis=QC_OPT_BASIS, device=DEVICE).run())
+    qgate("GeometryOptimizer converged (0 = yes)",
+          float(not opt.converged), 0.0)
+    out["examples"]["opt"] = dict(e_tot=opt.e_tot, steps=opt.niter)
+    hs = qc_stage(out, "Hessian water/STO-3G (card)", lambda: Hessian(
+        QC_WATER, basis=QC_WATER_DET_BASIS,
+        device=DEVICE).vibrational_frequencies())
+    hs_cpu = Hessian(QC_WATER, basis=QC_WATER_DET_BASIS,
+                     device="cpu").vibrational_frequencies()
+    qgate("Hessian frequencies card vs CPU (relative)",
+          float(np.max(np.abs(hs - hs_cpu) / np.abs(hs_cpu))), 1e-6)
+    out["examples"]["freqs_cm"] = np.asarray(hs).tolist()
+    hm = qc.Molecule(QC_H4, basis="sto-3g", device=DEVICE)
+    hmf = hm.RHF().run()
+    dm = DMRGQC(hmf, D=32)
+    e_dmrg = qc_stage(out, "DMRGQC H4/STO-3G (card)", dm.run)
+    qgate("DMRGQC vs FCI", abs(e_dmrg - qc.FCI(hmf).run()[0]), 1e-8)
+    out["examples"]["dmrgqc"] = e_dmrg
+    # ------------------------------------------ the benzene gradients
+    grad = qc_stage(out, "RHF analytic gradient (card)",
+                    lambda: rhf_gradient(mf))
+    qgate("RHF gradient card vs CPU", qc_abs(grad, rhf_gradient(ref)),
+          1e-9)
+    out["rhf"]["max_force"] = float(np.max(np.abs(grad)))
+    kgrad = qc_stage(out, "RKS analytic gradient (card)",
+                     lambda: ks_gradient(ks))
+    kref = qc_on_cpu(ks, cmol, qc.RKS, xc=QC_XC, **QC_GRID)
+    qgate("RKS gradient card vs CPU",
+          qc_abs(kgrad, qc_stage(out, "RKS analytic gradient (CPU)",
+                                 lambda: ks_gradient(kref))), 1e-9)
+    out["rks"]["max_force"] = float(np.max(np.abs(kgrad)))
+    del ks, kref, mf, ref, mol, cmol
+    torch.cuda.empty_cache()
+    no_launches("qchem")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[qchem] launch counts {read_counts()} (all 0); peak "
+        f"{out['peak_gib']:.2f} GiB; phase {out['phase_s']:.1f} s ({card})")
+    return out
+
+
+PHASE_S = {}
+
+
+def clocked(fn, *args):
+    """``fn(*args)``, its seconds logged and kept in :data:`PHASE_S`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[fn.__name__] = time.perf_counter() - t0
+    log(f"[phases] {fn.__name__}: {PHASE_S[fn.__name__]:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_environment()
     import pyqed_tpu_torch  # noqa: F401  (fails outside the repository)
     from pyqed_tpu_torch.ops import kernels as kn
-    phase_build()
+    clocked(phase_build)
     from pyqed_tpu_torch import FMO
     shapes = {"fmo": FMO().heom(**FLAGSHIP, device=DEVICE),
-              "chain8": chain_solver(),
+              "chain8": clocked(chain_solver),
               "nexp2": FMO().heom(**dict(FLAGSHIP, nexp=2), device=DEVICE)}
-    errs = phase_parity(shapes)
-    spo_errs = phase_spo_parity()
-    lb_errs = phase_lindblad_parity()
-    launches = phase_main()
-    spo_counts, spo_sol, spo_psi0 = phase_spo_main()
-    phase_spo_numpy_check()
-    phase_morse()
-    lb_launches = phase_lindblad_main()
-    phase_redfield()
-    slices = {"2des": {"photon_echo": phase_2des(), "tdes": phase_tdes()},
-              "deom": {"run": phase_deom(), "resolvent": phase_resolvent()},
-              "heom_driven": {"run": phase_heom_driven(),
-                              "correlations": phase_heom_correlations()},
-              "polariton": phase_polariton(),
-              "ldr": phase_ldr(card), "open": phase_open(card),
-              "nonadiabatic": phase_nonadiabatic(card),
-              "field2des": phase_field2des(card),
-              "grid": phase_grid_rest(card),
-              "tn": phase_tn(card), "control": phase_control(card)}
-    times = phase_timing(card, shapes)
-    spo_times = phase_spo_timing(card, spo_sol, spo_psi0)
+    errs = clocked(phase_parity, shapes)
+    spo_errs = clocked(phase_spo_parity)
+    lb_errs = clocked(phase_lindblad_parity)
+    launches = clocked(phase_main)
+    spo_counts, spo_sol, spo_psi0 = clocked(phase_spo_main)
+    clocked(phase_spo_numpy_check)
+    clocked(phase_morse)
+    lb_launches = clocked(phase_lindblad_main)
+    clocked(phase_redfield)
+    slices = {"2des": {"photon_echo": clocked(phase_2des),
+                       "tdes": clocked(phase_tdes)},
+              "deom": {"run": clocked(phase_deom),
+                       "resolvent": clocked(phase_resolvent)},
+              "heom_driven": {"run": clocked(phase_heom_driven),
+                              "correlations": clocked(
+                                  phase_heom_correlations)},
+              "polariton": clocked(phase_polariton),
+              "ldr": clocked(phase_ldr, card),
+              "open": clocked(phase_open, card),
+              "nonadiabatic": clocked(phase_nonadiabatic, card),
+              "field2des": clocked(phase_field2des, card),
+              "grid": clocked(phase_grid_rest, card),
+              "tn": clocked(phase_tn, card),
+              "control": clocked(phase_control, card),
+              "qchem": clocked(phase_qchem, card)}
+    times = clocked(phase_timing, card, shapes)
+    spo_times = clocked(phase_spo_timing, card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0
-    lb_times = phase_lindblad_timing(card)
-    ns10_times = phase_ns10_timing(card)
-    f2d_time = batched_coupling_timing(card)
-    slices["timing"] = phase_2des_timing(card)
-    slices["heom_driven"]["timing"] = phase_driven_timing(card)
+    lb_times = clocked(phase_lindblad_timing, card)
+    ns10_times = clocked(phase_ns10_timing, card)
+    f2d_time = clocked(batched_coupling_timing, card)
+    slices["timing"] = clocked(phase_2des_timing, card)
+    slices["heom_driven"]["timing"] = clocked(phase_driven_timing, card)
     slices["card"] = card
+    slices["phase_s"] = PHASE_S
     t_kern, t_plain, (b_ms, b_by) = times[("fmo", torch.complex128)]
     kernels = [{
         "name": "heom_coupling",

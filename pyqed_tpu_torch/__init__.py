@@ -63,11 +63,18 @@ Ported so far:
   coupling kernel per right-hand side covers the batch.
 
 - tensor networks and optimal control: ``tn`` (MPS/MPO, two-site DMRG,
-  TEBD, TDVP, autoMPO, the ab initio MPOs, TT-LDR and ``VibronicMPS``;
-  ``DMRGQC`` waits for ``qchem``) and ``control`` (GRAPE, OpenGRAPE,
+  TEBD, TDVP, autoMPO, the ab initio MPOs, TT-LDR and ``VibronicMPS``)
+  and ``control`` (GRAPE, OpenGRAPE,
   CRAB, Krotov, ``fit``). No TPU kernel lies on tn/; ``control`` runs
   ``torch.autograd`` through the solvers, and the commutator kernel's
   wrapper carries a backward (one more launch of the same kernel).
+
+- Gaussian-basis quantum chemistry (``qchem``): integrals on the host
+  (NumPy, and the C++ ERI engine built at first use), RHF/UHF, MP2,
+  CI/CASSCF, CCSD(T), EOM-CCSD, TDA/TDHF, RKS/UKS on Becke grids,
+  analytic gradients, the Hessian, localisation and RXS, on the
+  molecule's device; ``tn.DMRGQC`` runs on its integrals. No TPU kernel
+  lies on qchem/: it runs on cuBLAS and cuSOLVER.
 
 The package surface mirrors ``pyqed_tpu``'s for every ported module
 (``tests/test_torch_surface.py``); ``use_x64``/``x64_enabled`` are
@@ -120,6 +127,7 @@ from . import signal
 from . import floquet
 from . import tn
 from . import control
+from . import qchem
 from .ops.linalg import sort_eig as sort   # reference: pyqed/phys.py:554
 from .ops.operators import (
     lowering, raising, multi_spin, norm2, is_positive_def, direct_product,

@@ -14,16 +14,17 @@ complementary-operator scaling). The construction is NumPy on the host,
 as in the JAX package, so both packages build identical W tensors; the
 MPO lands on ``device`` (the card when None).
 
-:class:`DMRGQC` needs ``qchem.ci.spinorb_ints``: ``qchem`` is not yet
-ported, so it raises.
+:class:`DMRGQC` runs two-site DMRG on this MPO from a converged mean field
+of ``pyqed_tpu_torch.qchem`` (its spin-orbital integrals,
+``qchem.ci.spinorb_ints``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import not_yet_ported, resolve_device
-from .mps import MPO, MPS
+from ..config import resolve_device
+from .mps import MPO, MPS, two_site_dmrg
 
 _SP = np.array([[0.0, 0.0], [1.0, 0.0]])    # sigma+ = a+ (|1><0|)
 _SM = np.array([[0.0, 1.0], [0.0, 0.0]])    # sigma- = a
@@ -179,10 +180,46 @@ def _hartree_fock_mps(L, occ, device=None):
 
 
 class DMRGQC:
-    """Ab initio DMRG on a converged mean field (reference front door:
-    pyqed/qchem/dmrg.py:834 ``DMRG(mf, D)``). It needs the spin-orbital
-    integrals of ``qchem.ci``, which is not yet ported: the constructor
-    raises."""
+    """Ab initio DMRG on a converged mean field
+    (reference front door: pyqed/qchem/dmrg.py:834 ``DMRG(mf, D)``).
+
+    Parameters
+    ----------
+    mf : converged RHF-style object of ``pyqed_tpu_torch.qchem`` exposing
+        ``mo_ints()`` and ``mol.nelec`` / ``mol.energy_nuc()``.
+    D : maximum MPS bond dimension (the reference's ``m``).
+    device : where the MPO and the sweeps live (the mean field's molecule's
+        device when None).
+    """
 
     def __init__(self, mf, D=64, mpo_tol=1e-12, shift=2.0, device=None):
-        raise not_yet_ported("DMRGQC (it needs qchem.ci.spinorb_ints)")
+        from ..qchem.ci import spinorb_ints
+        self.mf = mf
+        self.D = int(D)
+        self.device = resolve_device(mf.mol.device if device is None
+                                     else device)
+        hmo, eri_mo = mf.mo_ints()
+        h, g = spinorb_ints(hmo, eri_mo)
+        self.h, self.g = h.cpu().numpy(), g.cpu().numpy()
+        self.ns = self.h.shape[0]
+        self.nelec = mf.mol.nelec
+        # number-penalized MPO: pins the N sector so a random
+        # (sector-spanning) seed converges to the NEUTRAL ground state;
+        # at the minimum the penalty term is exactly zero
+        self.mpo = qc_mpo(self.h, self.g, tol=mpo_tol, nelec=self.nelec,
+                          shift=shift, device=self.device)
+        self.e_tot = None
+        self.mps = None
+
+    def run(self, sweeps=10, seed=0):
+        # random seed spans all sectors — a chi=1 Hartree-Fock product
+        # is a fixed point of local two-site updates (bond never grows)
+        psi0 = MPS.random(self.ns, d=2, chi=min(self.D, 8), seed=seed,
+                          device=self.device)
+        energies, psi = two_site_dmrg(self.mpo, psi0, chi_max=self.D,
+                                      sweeps=sweeps)
+        self.sweep_energies = energies
+        self.e_elec = float(np.real(energies[-1]))
+        self.e_tot = self.e_elec + float(self.mf.mol.energy_nuc())
+        self.mps = psi
+        return self.e_tot

@@ -233,8 +233,27 @@ def test_chemps_builders_match_jax():
     hf = tchem._hartree_fock_mps(L, [0, 1], device=CPU)
     assert err(hf.to_dense(), jchem._hartree_fock_mps(L, [0, 1]).to_dense()) \
         == 0.0
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tn.DMRGQC(object())
+
+
+def test_dmrgqc_h4_matches_jax_and_fci():
+    """examples/ab_initio_dmrg.py: H4/STO-3G, 8 spin orbitals, bond 16
+    (exact for 8 sites); the port starts from JAX's orbitals."""
+    from pyqed_tpu import qchem as jq
+    from pyqed_tpu_torch import qchem as tq
+    atoms = [("H", (0.0, 0.0, 1.8 * i)) for i in range(4)]
+    jmf = jq.Molecule(atoms, basis="sto-3g").RHF().run()
+    tmf = tq.scf_from_reference(
+        tq.Molecule(atoms, basis="sto-3g", device=CPU), tq.RHF,
+        mo_coeff=np.array(jmf.mo_coeff), mo_energy=np.array(jmf.mo_energy),
+        dm=np.array(jmf.dm), nocc=jmf.nocc, e_tot=float(jmf.e_tot))
+    j = jtn.DMRGQC(jmf, D=16)
+    t = tn.DMRGQC(tmf, D=16)
+    # the integrals agree to rounding; the SVD-compressed MPO tensors then
+    # differ by gauge, so the energies are compared
+    assert err(t.h, j.h) < 1e-12 and err(t.g, j.g) < 1e-12
+    e_t, e_j = t.run(sweeps=6), j.run(sweeps=6)
+    assert abs(e_t - e_j) < 1e-8
+    assert abs(e_t - tq.FCI(tmf).run()[0]) < 1e-8
 
 
 # ----------------------------------------------------------------- MPS
