@@ -76,6 +76,17 @@ Ported so far:
   molecule's device; ``tn.DMRGQC`` runs on its integrals. No TPU kernel
   lies on qchem/: it runs on cuBLAS and cuSOLVER.
 
+- the rest of quantum chemistry and the Green's functions: analytic
+  excited-state and correlated forces and relaxed dipoles
+  (``qchem.tdgrad``: ``torch.func`` through the orbital functional, one
+  Z-vector solve, the derivative ERIs contracted per AO), DVR electronic
+  structure, densities and cube files, spin-orbit integrals, qubit
+  Hamiltonians, ab initio LVC models (``LVCBuilder``), the two-electron and 3D
+  Shin-Metiu models, and ``negf`` (Keldysh and equilibrium contour Green's
+  functions, Kadanoff-Baym marches with second-Born and GW self-energies,
+  DMFT in and out of equilibrium, G0W0, GW-BSE, real-time TDHF,
+  electron-phonon spectra). No TPU kernel lies on them.
+
 The package surface mirrors ``pyqed_tpu``'s for every ported module
 (``tests/test_torch_surface.py``); ``use_x64``/``x64_enabled`` are
 accepted and change nothing, since torch always has float64.
@@ -128,6 +139,7 @@ from . import floquet
 from . import tn
 from . import control
 from . import qchem
+from . import negf
 from .ops.linalg import sort_eig as sort   # reference: pyqed/phys.py:554
 from .ops.operators import (
     lowering, raising, multi_spin, norm2, is_positive_def, direct_product,

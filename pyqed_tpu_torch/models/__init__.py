@@ -14,6 +14,7 @@ from .vibronic import (Pyrazine, JahnTeller, ShinMetiu, ShinMetiuInField,
                        Pyrazine4, Triazine, SpinVibronic, VibronicAdiabatic)
 from .polariton_grid import GridMol, VibronicPolariton, VSC, TDH
 from .polariton_grid import GridMol2, VibronicPolariton2, berry_curvature_field
+from .shinmetiu2e import ShinMetiu2e1d, ShinMetiu3d
 from .shinmetiu2d import (ShinMetiu2D, ShinMetiu2DMagnetic,
                           ShinMetiu2DElectric, ShinMetiu2,
                           ShinMetiu2InMagneticField,

@@ -14,12 +14,13 @@ amplitudes reproduces MP2.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ci import spinorb_ints
 from .scf import diis_extrapolate
 
-__all__ = ["CCSD"]
+__all__ = ["CCSD", "ccsd_from_reference"]
 
 
 def _spin_fock(mf):
@@ -238,3 +239,20 @@ class CCSD:
         self.e_t = float(torch.sum(tc * (conn + disc)) / 36.0)
         self.e_tot_t = self.e_tot + self.e_t
         return self.e_t
+
+
+def ccsd_from_reference(mf, *, t1, t2, e_corr, converged=True, **kwargs):
+    """A converged :class:`CCSD` of the port on mean field ``mf`` holding
+    another run's amplitudes (``t1`` (no, nv) and ``t2`` (no, no, nv, nv)
+    in the interleaved spin-orbital basis, NumPy) and correlation energy;
+    the tensors land on the mean field's device. Gradient parity tests
+    start from the JAX package's amplitudes this way; nothing of JAX is
+    imported here."""
+    cc = CCSD(mf, **kwargs)
+    f = cc._setup()[0]
+    cc.t1 = torch.as_tensor(np.array(t1, dtype=float), device=f.device)
+    cc.t2 = torch.as_tensor(np.array(t2, dtype=float), device=f.device)
+    cc.e_corr = float(e_corr)
+    cc.e_tot = float(mf.e_tot) + cc.e_corr
+    cc.converged = bool(converged)
+    return cc

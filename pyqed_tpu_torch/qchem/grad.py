@@ -19,7 +19,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import not_yet_ported
 from .mol import Molecule
 
 __all__ = ["Grad", "optimize_geometry", "GeometryOptimizer",
@@ -278,14 +277,16 @@ def tda_gradient_fd(atoms, basis="sto-3g", state=1, singlet=True,
 
 class ExcitedGeometryOptimizer:
     """BFGS geometry optimization on the TDA excited-state surface
-    E_SCF + ω_TDA (FD gradients) — excited-state relaxed geometries,
-    adiabatic excitation energies, and excited-state frequencies feed
-    the vibronic-model builders.
+    E_SCF + ω_TDA — excited-state relaxed geometries, adiabatic
+    excitation energies, and excited-state frequencies feed the
+    vibronic-model builders (qchem/vibronic.py).
 
-    The analytic excited-state gradients live in ``qchem.tdgrad``, which
-    the port does not have yet: ``analytic=True`` raises, and the default
-    (``None``) takes the central-difference Jacobian (the JAX package
-    defaults to the analytic one for RHF and RKS/SVWN)."""
+    ``analytic``: the Jacobian. None (the default) takes the analytic
+    gradient of :mod:`.tdgrad` (one SCF+TDA per point instead of 2*3N)
+    for RHF and for RKS with SVWN, and central differences otherwise
+    (the analytic TDDFT path covers LDA only); True takes
+    ``tddft_tda_gradient`` on an RKS reference and ``cis_gradient``
+    otherwise; False always takes the central differences."""
 
     def __init__(self, atoms, basis="sto-3g", state=1, singlet=True,
                  step=5e-3, gtol=5e-4, maxiter=50, analytic=None,
@@ -299,10 +300,12 @@ class ExcitedGeometryOptimizer:
         self.maxiter = maxiter
         self.method = method
         self.xc = xc
-        if analytic:
-            raise not_yet_ported(
-                "the analytic excited-state gradient (qchem.tdgrad)")
-        self.analytic = False
+        if analytic is None:
+            m = method.upper()
+            analytic = (m == "RHF"
+                        or (m == "RKS"
+                            and (xc or "svwn").lower() == "svwn"))
+        self.analytic = bool(analytic)
         self.device = device
         self.scf_kw = scf_kw
         self.converged = False
@@ -324,6 +327,16 @@ class ExcitedGeometryOptimizer:
 
         def jac(x):
             geo = [(s, x[3 * k:3 * k + 3]) for k, s in enumerate(syms)]
+            if self.analytic:
+                from .tdgrad import cis_gradient, tddft_tda_gradient
+                _, mf, td = excited_state_energy(
+                    geo, self.basis, self.state, self.singlet,
+                    method=self.method, xc=self.xc, device=self.device,
+                    **self.scf_kw)
+                g = (tddft_tda_gradient(td, self.state)
+                     if hasattr(mf, "f_exc")
+                     else cis_gradient(td, self.state))
+                return np.asarray(g).reshape(-1)
             return tda_gradient_fd(geo, self.basis, self.state,
                                    self.singlet, self.step,
                                    method=self.method, xc=self.xc,

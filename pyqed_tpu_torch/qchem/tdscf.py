@@ -396,3 +396,25 @@ class UCIS:
         mu = self.transition_dipole()
         return (2.0 / 3.0) * np.asarray(self.e) \
             * np.sum(np.abs(mu) ** 2, axis=1)
+
+
+def tdscf_from_reference(mf, cls, *, e, xy, singlet=True):
+    """An excited-state solver of the port (``TDA``, ``TDHF`` or
+    ``UCIS``) on mean field ``mf`` holding another run's roots: ``e`` the
+    excitation energies, ``xy`` the amplitudes as NumPy arrays — (nov,
+    nroots) for TDA, a list of (X, Y) pairs for TDHF, a list of (X_a,
+    X_b) pairs for UCIS. The tensors land on the mean field's device.
+    Gradient parity tests start from the JAX package's own vectors this
+    way (degenerate roots and signs do not enter); nothing of JAX is
+    imported here."""
+    td = cls(mf) if cls is UCIS else cls(mf, singlet=singlet)
+    like = mf.mo_coeff[0] if isinstance(mf.mo_coeff, (tuple, list)) \
+        else mf.mo_coeff
+
+    def dev(x):
+        return torch.as_tensor(np.array(x, dtype=float), device=like.device)
+
+    td.e = np.array(e, dtype=float)
+    td.xy = (dev(xy) if cls is TDA
+             else [tuple(dev(z) for z in pair) for pair in xy])
+    return td

@@ -17,11 +17,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF = ROOT / "pyqed_tpu"
 PORT = ROOT / "pyqed_tpu_torch"
 PACKAGES = ("", "ops", "core", "open", "grid", "models", "signal", "utils",
-            "floquet", "tn", "control", "qchem")
+            "floquet", "tn", "control", "qchem", "negf")
 
-QCHEM = "queue 1 item 1 (the rest of qchem/: tdgrad, vibronic, dvr, " \
-    "density, soc, qubit)"
-NEGF = "queue 1 item 2 (negf/)"
 QMC = "queue 1 item 3 (qmc/)"
 REST = "queue 1 item 4 (the rest of ops/, utils/, core/, md/, ml/)"
 BEAM = "queue 1 item 5 (beam/)"
@@ -36,31 +33,14 @@ _STYLE = ("set_style", "subplots", "curve", "matplot", "imshow",
 # bound later by ``from . import quadrature``, the Gauss-Hermite module in
 # the reference: the name resolves on both
 _OPS_LATER = ("fft", "joint_diagonalize", "qndiag", "rkf45", "rkf45_sample")
-# the names of pyqed_tpu/qchem/__init__.py whose modules (tdgrad, vibronic,
-# dvr, density, soc) the port does not have yet
-_QCHEM_LATER = (
-    "cis_gradient", "tda_gradient", "mp2_gradient", "mp2_dipole",
-    "response_gradient", "ResponseEngine", "ccsd_gradient", "tdhf_gradient",
-    "tddft_tda_gradient", "ump2_gradient", "ump2_dipole", "ucis_gradient",
-    "ccsd_dipole", "cis_dipole", "tdhf_dipole", "ucis_dipole",
-    "tddft_tda_dipole", "LVCBuilder", "LVC_DFT", "MoleculeDVR", "RHF1D",
-    "RHF2D", "RKS1D", "CASCIDVR", "soft_coulomb", "exact_2e",
-    "ao_gradients", "charge_density", "transition_charge_density",
-    "transition_current_density", "current_density_wavefunction",
-    "cube_grid", "write_density_cube", "soc_integrals", "soc_matrix",
-    "soc_mo")
-
 MISSING = {
     **{("", n): REST for n in _STYLE + _OPS_LATER + ("AtomicUnits", "md",
                                                    "ml")},
-    ("", "parallel"): PARALLEL, ("", "qmc"): QMC,
-    ("", "negf"): NEGF, ("", "beam"): BEAM,
+    ("", "parallel"): PARALLEL, ("", "qmc"): QMC, ("", "beam"): BEAM,
     **{("ops", n): REST for n in _OPS_LATER},
     **{("utils", n): REST for n in _QIP + (
         "cnoise", "autocorrelation", "nonherm_eig", "diabatic_to_adiabatic",
-        "write_cube", "read_cube", "style")},
-    ("models", "ShinMetiu2e1d"): QCHEM, ("models", "ShinMetiu3d"): QCHEM,
-    **{("qchem", n): QCHEM for n in _QCHEM_LATER},
+        "style")},
 }
 
 
