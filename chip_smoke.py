@@ -229,6 +229,20 @@ nonzero:
      peak at TDHF's within 0.01) and the Holstein spectral function, all
      card vs CPU (<= 1e-10 rel); rows per second of the KB march and its
      busy share, RT-TDHF steps/s; no kernel launches;
+   - qmc/, md/ and ml/ (``phase_qmc``): QSATS at full width (solid He-4
+     on hcp (3, 3, 5), 180 atoms, 6,120 directed pairs, 512 walkers,
+     per-atom sweeps, exchange_prob 0.2, 200 sweeps) against the port's
+     C++ engine and torch.func autodiff (<= 1e-10), the card against the
+     CPU on the same draws over 5 sweeps (<= 1e-10, acceptance decisions
+     identical) and its energy against 48 C++ chains on the same schedule
+     (the example's 8 K/atom); DMC (65,536 walkers, 2,000 steps) against
+     1.5 and dmc_native; PIMC (2,048 x 64 beads) and three harmonic bosons in
+     BosonPIMC against the exact energy of their discretised path
+     integral; RPMD's Kubo TCF and PILE thermalisation; LJMD with 2,048
+     atoms (NVE spread, 20,000 Monte Carlo moves); an MLP fit card vs
+     CPU; statistical gates at 5 standard errors; sweeps/s, walker-steps/s,
+     device time and busy share of the graphed steps, host calls per sweep
+     eager and graphed, peak memory; no kernel launches;
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -263,8 +277,8 @@ The line before the last is a JSON summary of the kernels (the generic
 SPO branch as ``spo_potential_generic``, timed at the main path's
 1,024 x 10 with its 2^20-point times beside; the batched coupling as
 ``heom_coupling_batched``), with the 2DES, DEOM, driven-HEOM, polariton,
-LDR, open, nonadiabatic, field-2DES, grid, tn, control, qchem, qchem_rest
-and negf gates and times under "slices" (each phase's seconds under "phase_s", also logged
+LDR, open, nonadiabatic, field-2DES, grid, tn, control, qchem, qchem_rest,
+negf and qmc gates and times under "slices" (each phase's seconds under "phase_s", also logged
 as it ends);
 the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it raises before
@@ -5309,6 +5323,433 @@ def phase_negf(card):
     return out
 
 
+# ---------------------------------------------------------------- qmc
+QMC_DENSITY = 4.0 / 7.5 ** 3      # examples/qsats_solid_helium.py
+QMC_QS_CELLS = (3, 3, 5)          # hcp: 180 atoms, 6,120 directed pairs
+QMC_QS_SHAPE = (180, 6120)
+QMC_QS_NW = 512
+QMC_QS_SWEEPS = 200               # depth: cut these first
+QMC_QS_EQUIL = 100                # the chains' schedule equals the walkers'
+QMC_QS_CPU = (16, 5)              # card vs CPU: the first 16 walkers, 5 sweeps
+QMC_QS_CHAINS = 48                # C++ chains (host threads), seeds 0..47
+QMC_QS_CHAIN = dict(nsweeps=QMC_QS_SWEEPS, nequil=QMC_QS_EQUIL, step=0.5)
+QMC_DMC = dict(nwalkers=65536, nsteps=2000, dt=0.01, eref=1.5, nequil=500)
+QMC_DMC_NATIVE_NW = 8192
+QMC_PIMC = dict(npaths=2048, nsweeps=1200, ntherm=500, step=0.5)
+QMC_PIMC_SYS = dict(beta=2.0, nbeads=64)          # examples/pimc_harmonic.py
+QMC_BOSON = dict(nreplicas=4096, nsweeps=1000, ntherm=500, step=0.4)
+QMC_BOSON_SYS = dict(nparticles=3, beta=2.0, nbeads=32)
+QMC_RPMD = dict(beta=8.0, nbeads=32, ntraj=4000)  # examples/rpmd_harmonic.py
+QMC_RPMD_TCF = dict(dt=0.05, nt=200, nout=4)
+QMC_RPMD_THERM = (256, 3000)
+QMC_LJ = dict(ncell=8, density=0.8, temperature=1.0)   # 2,048 atoms
+QMC_LJ_NT = (200, 400)            # thermostatted, then NVE steps
+QMC_LJ_MC = 20000
+QMC_MLP = dict(dims=(2, 64, 64, 1), npts=1024, epochs=200, lr=5e-3)
+QMC_NSE = 5.0                     # statistical gates: standard errors
+
+
+def block_se(trace, nblocks=20):
+    """(mean, standard error) of a Monte Carlo trace from ``nblocks``
+    block means."""
+    x = trace.detach().cpu().numpy() if isinstance(trace, torch.Tensor) \
+        else np.asarray(trace)
+    b = np.array([c.mean() for c in np.array_split(x, nblocks)])
+    return float(x.mean()), float(b.std(ddof=1) / np.sqrt(nblocks))
+
+
+def harmonic_pimc_energy(nparticles, beta, nbeads, ndim=1, omega=1.0):
+    """-d ln Z / d beta of N ideal bosons (N = 1: one particle) in a
+    harmonic well under the primitive action of ``nbeads`` beads, the
+    quantity the thermodynamic estimator samples without bias: Z_n =
+    (1/n) sum_k z_k Z_{n-k}, z_k a ring of k * nbeads beads,
+    prod_j (2 - 2 cos(2 pi j / P) + (tau omega)^2)^(-ndim/2)."""
+    def lnZ(b):
+        tau = b / nbeads
+        z = [0.0] + [np.exp(-0.5 * ndim * np.sum(np.log(
+            2.0 - 2.0 * np.cos(2.0 * np.pi * np.arange(k * nbeads)
+                               / (k * nbeads)) + (tau * omega) ** 2)))
+            for k in range(1, nparticles + 1)]
+        Z = [1.0]
+        for n in range(1, nparticles + 1):
+            Z.append(sum(z[k] * Z[n - k] for k in range(1, n + 1)) / n)
+        return np.log(Z[nparticles])
+    h = 1e-5 * beta
+    return -(lnZ(beta + h) - lnZ(beta - h)) / (2.0 * h)
+
+
+def qmc_profile(fn, calls):
+    """Per call of ``fn()``: device time (us) and device kernels
+    (torch.profiler's CUDA events), and the host's CUDA runtime calls by
+    name (kernel launches, graph launches, copies)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_us, kernels, api = 0.0, 0.0, {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us_ = getattr(evt, "self_device_time_total", None)
+            dev_us += evt.self_cuda_time_total if us_ is None else us_
+            kernels += evt.count
+        elif evt.key in ("cudaLaunchKernel", "cudaGraphLaunch",
+                         "cudaMemcpyAsync", "cuLaunchKernel"):
+            api[evt.key] = evt.count / calls
+    return dev_us / calls, kernels / calls, api
+
+
+def qmc_qsats(card, out, qgate, host):
+    """QSATS at full width (hcp (3, 3, 5), 512 walkers, per-atom sweeps,
+    exchange_prob 0.2) against the port's C++ engine, autodiff and the
+    CPU; its rates, profile and peak memory."""
+    from pyqed_tpu_torch.qmc import QSATS, hcp_lattice, qsats_eloc_native
+    from pyqed_tpu_torch.core.dynamics import GraphScan
+    sites, box = hcp_lattice(QMC_QS_CELLS, QMC_DENSITY)
+    sol = QSATS(sites, box, a=0.06, b=5.0, device=DEVICE)
+    P = sol.ipairs.shape[0]
+    if (sol.natoms, P) != QMC_QS_SHAPE:
+        raise AssertionError(f"hcp {QMC_QS_CELLS}: {sol.natoms} atoms, "
+                             f"{P} pairs, expected {QMC_QS_SHAPE}")
+    rng = np.random.default_rng(SEED)
+    q = 0.3 * rng.normal(size=(4, sol.natoms, 3)) / np.sqrt(4 * sol.a)
+    tl, vl = sol.local_energy(torch.as_tensor(q, device=DEVICE))
+    tc, vc = qsats_eloc_native(q, sol.ipairs, sol.vpvec, sol.a, sol.b,
+                               sol.mass)
+    e_card = (tl + vl).cpu().numpy()
+    qgate("QSATS batched local energy vs the C++ engine (rel)",
+          float(np.max(np.abs(e_card - (tc + vc)) / np.abs(tc + vc))), 1e-10)
+    x = torch.as_tensor(q[0], device=DEVICE).reshape(-1)
+    lp = lambda y: sol.log_psi(y.reshape(-1, 3))             # noqa: E731
+    g = torch.func.grad(lp)(x)
+    t_ad = -0.5 / sol.mass * (torch.trace(torch.func.hessian(lp)(x))
+                              + torch.sum(g * g))
+    qgate("QSATS kinetic estimator vs torch.func autodiff of log_psi (rel)",
+          abs(float(tl[0] - t_ad)) / abs(float(t_ad)), 1e-10)
+    # card vs CPU on the same draws: 5 sweeps, 2 of them with exchanges
+    ncpu, nsw = QMC_QS_CPU
+    gen = torch.Generator().manual_seed(SEED)
+    draws = sol.draws(gen, nsw, QMC_QS_NW, exchange=True)
+    q0 = (0.3 * torch.randn((QMC_QS_NW, sol.natoms, 3), generator=gen,
+                            dtype=torch.float64) / np.sqrt(4 * sol.a))
+    flags = np.array([False, True, False, True, False])
+    cpu = QSATS(sites, box, a=0.06, b=5.0, device="cpu")
+    qc, qh = q0.to(DEVICE), q0[:ncpu]
+    e_err, acc_same = 0.0, True
+    for k in range(nsw):
+        (qc, _), _, acc_c, _ = sol.sweeps(
+            qc, [d[k:k + 1].to(DEVICE) for d in draws], flags[k:k + 1])
+        qc = qc.clone()
+        (qh, _), _, acc_h, _ = cpu.sweeps(
+            qh, [d[k:k + 1, :ncpu] for d in draws], flags[k:k + 1])
+        ec = sum(sol.local_energy(qc[:ncpu])).cpu()
+        eh = sum(cpu.local_energy(qh))
+        e_err = max(e_err, float(torch.max(torch.abs(ec - eh) / eh.abs())))
+        # accepted moves per walker (the fractions' last bit follows how
+        # each device divides)
+        acc_same &= bool(torch.equal(
+            torch.round(acc_c[:, :ncpu].cpu() * sol.natoms),
+            torch.round(acc_h * sol.natoms)))
+    qgate(f"QSATS card vs CPU, {nsw} sweeps on the same draws: local "
+          f"energies of the first {ncpu} walkers (rel)", e_err, 1e-10)
+    if not acc_same:
+        raise AssertionError("QSATS card vs CPU: acceptance decisions differ")
+    qgate("QSATS card vs CPU: final walkers (rel)",
+          float(torch.max(torch.abs(qc[:ncpu].cpu() - qh))
+                / torch.max(torch.abs(qh))), 1e-10)
+    log(f"[qmc] QSATS card vs CPU: acceptance decisions of {ncpu} walkers x "
+        f"{sol.natoms} atoms x {nsw} sweeps identical ({card})")
+    # the full-width run, through the entry point
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = timed(lambda: sol.run(SEED, nwalkers=QMC_QS_NW,
+                                      nsweeps=QMC_QS_SWEEPS,
+                                      nequil=QMC_QS_EQUIL, step=0.5,
+                                      exchange_prob=0.2))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # 180 atoms relax from the tight start over hundreds of sweeps, so the
+    # C++ chains (per-atom moves, no exchanges) are held to a run with the
+    # same moves over the same sweeps from the same kind of start
+    plain = sol.run(SEED + 1, nwalkers=QMC_QS_NW, nsweeps=QMC_QS_SWEEPS,
+                    nequil=QMC_QS_EQUIL, step=0.5)
+    chains = np.array([f.result()[0] for f in host["qsats"]])
+    e_cpp = float(chains.mean())
+    se_cpp = float(chains.std(ddof=1) / np.sqrt(len(chains)))
+    log(f"[qmc] QSATS energies (K/atom): exchange_prob 0.2 "
+        f"{res['energy']:.3f} +- {res['error']:.3f}, without exchanges "
+        f"{plain['energy']:.3f} +- {plain['error']:.3f}, {len(chains)} C++ "
+        f"chains {e_cpp:.3f} +- {se_cpp:.3f} ({card})")
+    qgate(f"QSATS energy without exchanges vs {len(chains)} C++ chains on "
+          "the same schedule, K/atom (the example's window 8.0)",
+          abs(plain["energy"] - e_cpp), 8.0)
+    # steady state: one sweep graphed and eager
+    state = (torch.as_tensor(res["walkers"], device=DEVICE),)
+    state = (state[0], sol.log_psi(state[0]))
+    g1 = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    d1 = sol.draws(g1, 1, QMC_QS_NW)
+    graphed = GraphScan(sol.sweep_fn(0.5, "peratom", False))
+    eager = GraphScan(sol.sweep_fn(0.5, "peratom", False), graph=False)
+    graphed(state, *d1)
+    walls = wall_s(lambda: graphed(state, *d1), reps=5)
+    g_us, g_k, g_api = qmc_profile(lambda: graphed(state, *d1), 3)
+    e_us, e_k, e_api = qmc_profile(lambda: eager(state, *d1), 1)
+    sweep_s = min(walls)
+    out["qsats"] = dict(
+        natoms=sol.natoms, pairs=P, walkers=QMC_QS_NW, sweeps=QMC_QS_SWEEPS,
+        energy_K=res["energy"], error_K=res["error"], cpp_K=e_cpp,
+        cpp_se_K=se_cpp, no_exchange_K=plain["energy"],
+        acceptance=res["acceptance"],
+        exchanges_accepted=res["exchange_acceptance"], run_s=wall,
+        sweeps_per_s=QMC_QS_SWEEPS / wall,
+        walker_sweeps_per_s=QMC_QS_SWEEPS * QMC_QS_NW / wall,
+        graphed_sweep_ms=sweep_s * 1e3, device_us_per_sweep=g_us,
+        busy=g_us / 1e6 / sweep_s, kernels_per_sweep=g_k,
+        host_calls_graphed=g_api, host_calls_eager=e_api,
+        eager_device_us=e_us, peak_gib=peak)
+    log(f"[qmc] QSATS hcp {QMC_QS_CELLS}: {sol.natoms} atoms, {P} pairs, "
+        f"{QMC_QS_NW} walkers, {QMC_QS_SWEEPS} per-atom sweeps in {wall:.2f} "
+        f"s ({QMC_QS_SWEEPS / wall:.1f} sweeps/s, "
+        f"{QMC_QS_SWEEPS * QMC_QS_NW / wall:.0f} walker-sweeps/s, graph "
+        f"capture included); acceptance "
+        f"{res['acceptance']:.3f}, {res['exchange_acceptance']:.3f} "
+        f"exchanges accepted per walker; peak {peak:.2f} GiB ({card})")
+    log(f"[qmc] QSATS sweep graphed {sweep_s * 1e3:.2f} ms wall, "
+        f"{g_us / 1e3:.2f} ms device ({g_k:.0f} kernels), busy "
+        f"{g_us / 1e6 / sweep_s:.3f}; host calls per sweep graphed {g_api}, "
+        f"eager {e_api} ({e_us / 1e3:.2f} ms device) ({card})")
+
+
+def qmc_dmc(card, out, qgate, host):
+    from pyqed_tpu_torch.core.dynamics import GraphScan
+    from pyqed_tpu_torch.qmc import DMC
+    dmc = DMC(ndim=3, potential=lambda x: 0.5 * torch.sum(x ** 2))
+    (E, tr, xf), wall = timed(lambda: dmc.run(SEED, device=DEVICE,
+                                              **QMC_DMC))
+    nw, ns = QMC_DMC["nwalkers"], QMC_DMC["nsteps"]
+    # blocks of 150 steps, beyond the walkers' correlation time (1 / dt)
+    e, se = block_se(tr[QMC_DMC["nequil"]:], 10)
+    qgate("DMC 3-D harmonic E vs 1.5, in standard errors",
+          abs(e - 1.5) / se, QMC_NSE)
+    En, trn, _ = host["dmc"].result()
+    en, sen = block_se(trn[QMC_DMC["nequil"]:], 10)
+    qgate(f"DMC vs dmc_native at {QMC_DMC_NATIVE_NW} walkers, in standard "
+          "errors", abs(e - en) / np.hypot(se, sen), QMC_NSE)
+    scan = GraphScan(dmc.step_fn(QMC_DMC["dt"]))
+    carry = (xf, torch.ones(nw, dtype=torch.float64, device=DEVICE),
+             torch.tensor(1.5, dtype=torch.float64, device=DEVICE))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    xi = torch.randn((50, nw, 3), generator=gen, device=DEVICE,
+                     dtype=torch.float64)
+    u = torch.rand((50,), generator=gen, device=DEVICE, dtype=torch.float64)
+    carry, _ = scan(carry, xi, u)
+    walls = wall_s(lambda: scan(carry, xi, u), reps=3)
+    d_us, k, api = qmc_profile(lambda: scan(carry, xi[:10], u[:10]), 2)
+    step_s = min(walls) / 50
+    out["dmc"] = dict(E=e, se=se, native_E=en, native_se=sen, run_s=wall,
+                      walker_steps_per_s=nw * ns / wall,
+                      step_us=step_s * 1e6, device_us_per_step=d_us / 10,
+                      kernels_per_step=k / 10, busy=d_us / 10 / 1e6 / step_s)
+    log(f"[qmc] DMC 3-D harmonic, {nw} walkers x {ns} steps in {wall:.2f} s "
+        f"({nw * ns / wall:.3e} walker-steps/s); E = {e:.5f} +- {se:.5f} "
+        f"(dmc_native {en:.5f} +- {sen:.5f}); a graphed step {step_s * 1e6:.1f}"
+        f" us wall, {d_us / 10:.1f} us device ({k / 10:.0f} kernels), busy "
+        f"{d_us / 10 / 1e6 / step_s:.3f} ({card})")
+
+
+def qmc_pimc(card, out, qgate):
+    from pyqed_tpu_torch.qmc import BosonPIMC, PIMC
+    pimc = PIMC(lambda q: 0.5 * torch.sum(q ** 2), **QMC_PIMC_SYS)
+    (ev, et, acc, _), wall = timed(lambda: pimc.run(SEED, device=DEVICE,
+                                                    **QMC_PIMC))
+    e_th, se = block_se(pimc.trace_[1])
+    e_vir, se_v = block_se(pimc.trace_[0])
+    exact_m = harmonic_pimc_energy(1, QMC_PIMC_SYS["beta"],
+                                   QMC_PIMC_SYS["nbeads"])
+    exact = 0.5 / np.tanh(0.5 * QMC_PIMC_SYS["beta"])
+    qgate(f"PIMC thermodynamic estimator vs the exact M = "
+          f"{QMC_PIMC_SYS['nbeads']} energy, in standard errors",
+          abs(e_th - exact_m) / se, QMC_NSE)
+    qgate("PIMC virial estimator vs the exact thermal energy, in standard "
+          "errors", abs(e_vir - exact) / se_v, QMC_NSE)
+    nps = QMC_PIMC["npaths"] * (QMC_PIMC["nsweeps"] + QMC_PIMC["ntherm"])
+    out["pimc"] = dict(E_thermo=e_th, se=se, E_virial=e_vir, se_virial=se_v,
+                       exact=exact, exact_M=exact_m, acceptance=acc,
+                       run_s=wall, path_sweeps_per_s=nps / wall)
+    log(f"[qmc] PIMC harmonic (examples/pimc_harmonic.py): "
+        f"{QMC_PIMC['npaths']} paths x {QMC_PIMC_SYS['nbeads']} beads, "
+        f"{QMC_PIMC['ntherm']} + {QMC_PIMC['nsweeps']} sweeps in {wall:.2f} "
+        f"s ({nps / wall:.3e} path-sweeps/s); thermo {e_th:.5f} +- {se:.5f} "
+        f"(exact at M {exact_m:.5f}), virial {e_vir:.5f} +- {se_v:.5f} "
+        f"(exact {exact:.5f}); acceptance {acc:.3f} ({card})")
+    sysb = QMC_BOSON_SYS
+    bos = BosonPIMC(lambda q: 0.5 * torch.sum(q ** 2), **sysb)
+    (E, ab, ap, frac), wall = timed(lambda: bos.run(SEED, device=DEVICE,
+                                                    **QMC_BOSON))
+    eb, seb = block_se(bos.trace_[0], 10)
+    exact_b = harmonic_pimc_energy(sysb["nparticles"], sysb["beta"],
+                                   sysb["nbeads"])
+    dist = sysb["nparticles"] * harmonic_pimc_energy(1, sysb["beta"],
+                                                     sysb["nbeads"])
+    qgate(f"BosonPIMC {sysb['nparticles']} bosons vs the exact M = "
+          f"{sysb['nbeads']} energy, in standard errors",
+          abs(eb - exact_b) / seb, QMC_NSE)
+    out["boson_pimc"] = dict(E=eb, se=seb, exact_M=exact_b,
+                             distinguishable_M=dist, acc_bead=ab,
+                             acc_perm=ap, exchanged_fraction=frac, run_s=wall)
+    log(f"[qmc] BosonPIMC {sysb['nparticles']} bosons, beta "
+        f"{sysb['beta']}, {sysb['nbeads']} beads, {QMC_BOSON['nreplicas']} "
+        f"replicas, {QMC_BOSON['ntherm']} + {QMC_BOSON['nsweeps']} sweeps in "
+        f"{wall:.2f} s: E = {eb:.5f} +- {seb:.5f} (exact {exact_b:.5f}; "
+        f"distinguishable {dist:.5f}); acceptance beads {ab:.3f}, "
+        f"permutations {ap:.4f}, {frac:.3f} of replicas exchanged ({card})")
+
+
+def qmc_md(card, out, qgate):
+    from pyqed_tpu_torch.md import LJMD, RPMD, kubo_harmonic_xx, lj_forces
+    c = QMC_RPMD
+    rp = RPMD(lambda x: 0.5 * torch.sum(x ** 2), beta=c["beta"],
+              nbeads=c["nbeads"], device=DEVICE)
+    x0, p0 = rp.sample_harmonic(SEED, c["ntraj"], 1.0)
+    exact = 0.5 / np.tanh(c["beta"] / 2)
+    x2 = float(torch.mean(torch.sum(x0 ** 2, dim=-1)))
+    qgate("RPMD thermal <x^2> vs 0.5 coth(4) (rel; the example's 0.05)",
+          abs(x2 - exact) / exact, 0.05)
+    (tt, C), wall = timed(lambda: rp.position_tcf(x0, p0, **QMC_RPMD_TCF))
+    Cex = kubo_harmonic_xx(tt, 1.0, c["beta"])
+    qgate("RPMD Kubo C_xx(t) vs kubo_harmonic_xx (of C(0); the example's "
+          "0.03)", float(np.max(np.abs(C - Cex)) / Cex[0]), 0.03)
+    nth, nst = QMC_RPMD_THERM
+    z = torch.zeros((nth, c["nbeads"], 1), dtype=torch.float64, device=DEVICE)
+    (xt, _), wall_t = timed(lambda: rp.thermalize(z, z, 2, dt=0.05,
+                                                   nsteps=nst))
+    x2t = float(torch.mean(torch.sum(xt ** 2, dim=-1)))
+    qgate("T-RPMD (PILE) thermalized <x^2> (rel; the example's 0.15)",
+          abs(x2t - exact) / exact, 0.15)
+    out["rpmd"] = dict(x2=x2, x2_pile=x2t, tcf_s=wall, pile_s=wall_t,
+                       traj_steps_per_s=c["ntraj"] * QMC_RPMD_TCF["nt"] / wall,
+                       pile_steps_per_s=nst / wall_t)
+    log(f"[qmc] RPMD (examples/rpmd_harmonic.py): TCF of {c['ntraj']} x "
+        f"{c['nbeads']} beads, {QMC_RPMD_TCF['nt']} steps in {wall:.3f} s; "
+        f"PILE {nth} trajectories x {nst} steps in {wall_t:.3f} s "
+        f"({nst / wall_t:.0f} steps/s) ({card})")
+    # ------------------------------------------- Lennard-Jones
+    lj = LJMD(device=DEVICE, **QMC_LJ)
+    nth, nve = QMC_LJ_NT
+    run, wall = timed(lambda: lj.run(SEED, dt=0.005, nt=nth + nve,
+                                     thermostat_steps=nth))
+    etot = (run["U"] + 1.5 * lj.n * run["T"])[nth:].cpu().numpy()
+    drift = float((etot.max() - etot.min()) / abs(etot.mean()))
+    qgate(f"LJMD {lj.n} atoms: NVE total energy spread over {nve} steps "
+          "(rel)", drift, 1e-3)
+    mc, wall_mc = timed(lambda: lj.monte_carlo(SEED, nmoves=QMC_LJ_MC,
+                                               delta=0.1, x0=run["x"]))
+    U_fresh = float(lj_forces(mc["x"], lj.L, lj.rc)[0])
+    qgate(f"LJ Monte Carlo: U after {QMC_LJ_MC} moves (sum of dU) vs a fresh "
+          "total (rel)", abs(mc["U"] - U_fresh) / abs(U_fresh), 1e-9)
+    if not 0.05 < mc["acceptance"] < 0.95:
+        raise AssertionError(f"LJ Monte Carlo acceptance {mc['acceptance']}")
+    out["ljmd"] = dict(natoms=lj.n, steps_per_s=(nth + nve) / wall,
+                       nve_spread=drift, mc_moves_per_s=QMC_LJ_MC / wall_mc,
+                       mc_acceptance=mc["acceptance"])
+    log(f"[qmc] LJMD ncell {QMC_LJ['ncell']} ({lj.n} atoms): {nth + nve} "
+        f"steps in {wall:.2f} s ({(nth + nve) / wall:.0f} steps/s), NVE "
+        f"spread {drift:.2e}; {QMC_LJ_MC} MC moves in {wall_mc:.2f} s "
+        f"({QMC_LJ_MC / wall_mc:.0f} moves/s), acceptance "
+        f"{mc['acceptance']:.3f} ({card})")
+
+
+def qmc_mlp(card, out, qgate):
+    from pyqed_tpu_torch.ml import MLP, init_params, params_from_numpy
+    c = QMC_MLP
+    rng = np.random.default_rng(SEED)
+    x = rng.uniform(-1.5, 1.5, size=(c["npts"], 2))
+    y = np.sin(x[:, :1]) * np.cos(x[:, 1:])
+    p0 = [tuple(a.numpy() for a in layer)
+          for layer in init_params(SEED, c["dims"], device="cpu")]
+    fits = {}
+    for d in (DEVICE, "cpu"):
+        m = MLP(c["dims"], device=d)
+        m.params = params_from_numpy(p0, d)
+        _, wall = timed(lambda: m.fit(x, y, lr=c["lr"], epochs=c["epochs"]))
+        fits[d] = (m.loss_, wall)
+    (lc, wc), (lh, wh) = fits[DEVICE], fits["cpu"]
+    qgate(f"MLP {c['dims']} fit, {c['epochs']} Adam epochs: loss card vs CPU "
+          "(rel)", abs(lc - lh) / lh, 1e-10)
+    out["mlp"] = dict(loss=lc, card_s=wc, cpu_s=wh)
+    log(f"[qmc] MLP {c['dims']} on {c['npts']} points: loss {lc:.6e} after "
+        f"{c['epochs']} epochs, {wc:.2f} s on the card, {wh:.2f} s on the "
+        f"CPU ({card})")
+
+
+def phase_qmc(card):
+    """qmc/, md/ and ml/ on the card (no TPU kernel lies on them, so every
+    launch count stays 0): QSATS at full width (solid He-4 on hcp (3, 3,
+    5), 180 atoms and 6,120 directed pairs at the example's density, a =
+    0.06, b = 5.0, 512 walkers, per-atom sweeps with exchange_prob 0.2, 200
+    sweeps of which 100 equilibrate): its batched local energy against
+    the port's C++ engine and against torch.func autodiff of log_psi (<=
+    1e-10 rel), the card against the CPU on the same draws over 5 sweeps
+    (local energies <= 1e-10 rel, acceptance decisions identical), the
+    energy within the example's 8 K/atom of 48 C++ chains relaxing over
+    the same sweeps from the same kind of start (host threads beside the
+    card's work); sweeps/s, a graphed sweep's device time and
+    busy share, host calls per sweep eager and graphed, peak memory. DMC
+    on the 3-D harmonic well (65,536 walkers, 2,000 steps of 0.01) within
+    5 standard errors of 1.5 and of dmc_native at 8,192 walkers; PIMC
+    (examples/pimc_harmonic.py: 2,048 paths x 64 beads, 1,200 sweeps) and
+    three harmonic bosons in BosonPIMC within 5 standard errors of the
+    exact energy of their discretised path integral; RPMD's Kubo TCF and
+    PILE thermalisation (examples/rpmd_harmonic.py, its tolerances); LJMD
+    with 2,048 atoms (NVE energy spread, 20,000 Monte Carlo moves whose
+    summed dU equals a fresh total); an MLP fit, card vs CPU (<= 1e-10)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pyqed_tpu_torch.qmc import dmc_native, hcp_lattice, QSATS
+    from pyqed_tpu_torch.qmc import build_native_engine, qsats_vmc_native
+    t_phase = time.perf_counter()
+    out = {"card": card, "gates": {}}
+    reset_counts()
+
+    def qgate(label, val, tol):
+        out["gates"][label] = gate("qmc", label, val, tol)
+
+    # the C++ references run on host threads (ctypes releases the GIL)
+    # while the card works
+    build_native_engine()
+    sites, box = hcp_lattice(QMC_QS_CELLS, QMC_DENSITY)
+    ref = QSATS(sites, box, a=0.06, b=5.0, device="cpu")
+    rng = np.random.default_rng(SEED)
+    pool = ThreadPoolExecutor(8)
+    try:
+        # first in the queue: the DMC stage, the first, waits for it
+        host = {"dmc": pool.submit(
+            dmc_native, "harmonic", ndim=3, nwalkers=QMC_DMC_NATIVE_NW,
+            nsteps=QMC_DMC["nsteps"], nequil=QMC_DMC["nequil"],
+            dt=QMC_DMC["dt"], eref0=QMC_DMC["eref"], seed=SEED)}
+        host["qsats"] = [pool.submit(
+            qsats_vmc_native, 0.3 * rng.normal(size=(ref.natoms, 3))
+            / np.sqrt(4 * ref.a), ref.ipairs, ref.vpvec, ref.a, ref.b,
+            ref.mass, seed=s, **QMC_QS_CHAIN) for s in range(QMC_QS_CHAINS)]
+        stages = {}
+        for name, fn, args in (("dmc", qmc_dmc, (host,)),
+                               ("pimc", qmc_pimc, ()),
+                               ("md", qmc_md, ()), ("mlp", qmc_mlp, ()),
+                               ("qsats", qmc_qsats, (host,))):
+            t0 = time.perf_counter()
+            fn(card, out, qgate, *args)
+            stages[name] = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True)
+    out["stage_s"] = stages
+    no_launches("qmc")
+    out["launches"] = read_counts()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[qmc] stages {', '.join(f'{k} {v:.1f} s' for k, v in stages.items())}"
+        f"; launch counts {read_counts()} (all 0); phase "
+        f"{out['phase_s']:.1f} s ({card})")
+    return out
+
+
 PHASE_S = {}
 
 
@@ -5359,6 +5800,7 @@ def main():
     slices["qchem"], benzene = slices["qchem"]
     slices["qchem_rest"] = clocked(phase_qchem_rest, card, benzene)
     slices["negf"] = clocked(phase_negf, card)
+    slices["qmc"] = clocked(phase_qmc, card)
     times = clocked(phase_timing, card, shapes)
     spo_times = clocked(phase_spo_timing, card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0

@@ -87,6 +87,16 @@ Ported so far:
   DMFT in and out of equilibrium, G0W0, GW-BSE, real-time TDHF,
   electron-phonon spectra). No TPU kernel lies on them.
 
+- the sampling family: ``qmc`` (DMC/VMC, PIMC and BosonPIMC, QSATS, Sobol
+  integration, the C++ walker engine), ``md`` (Lennard-Jones MD and Monte
+  Carlo, RPMD) and ``ml`` (MLP fits); ``ops.fft``, ``ops.ode``,
+  ``ops.jointdiag``, ``ops.quadrature``; ``utils.qip``, ``noise`` and
+  ``nonherm``; the rest of ``core.diagnostics``; ``units.AtomicUnits``.
+  Every sampler takes its random draws as arguments (``run`` draws them
+  from a seeded ``torch.Generator`` on the device) and runs its step as a
+  CUDA graph on the card (``core.dynamics.GraphScan``). No TPU kernel lies
+  on them.
+
 The package surface mirrors ``pyqed_tpu``'s for every ported module
 (``tests/test_torch_surface.py``); ``use_x64``/``x64_enabled`` are
 accepted and change nothing, since torch always has float64.
@@ -140,6 +150,9 @@ from . import tn
 from . import control
 from . import qchem
 from . import negf
+from . import qmc
+from . import md
+from . import ml
 from .ops.linalg import sort_eig as sort   # reference: pyqed/phys.py:554
 from .ops.operators import (
     lowering, raising, multi_spin, norm2, is_positive_def, direct_product,

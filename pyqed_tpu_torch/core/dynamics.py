@@ -110,6 +110,28 @@ def run_solver(step_fn, y0, dt, nt, e_ops: Optional[Sequence] = None,
     return res
 
 
+def _capture(step, bufs, spec, ins):
+    """Capture ``step(carry, *ins) -> (carry, y)`` as a CUDA graph that
+    writes the new carry into ``bufs`` (the carry's leaves, tree ``spec``);
+    returns (graph, y's leaves, y's tree spec). Two calls on a side stream
+    do the first-use set-up outside the capture."""
+    from torch.utils import _pytree as pytree
+    now = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(now)
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(pytree.tree_unflatten(bufs, spec), *ins)
+    now.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c, y = step(pytree.tree_unflatten(bufs, spec), *ins)
+        for b, o in zip(bufs, pytree.tree_leaves(c)):
+            b.copy_(o)
+        youts, yspec = pytree.tree_flatten(y)
+    return graph, youts, yspec
+
+
 def cuda_graph_stepper(step: Callable, state, *inputs, graph: bool = True):
     """``advance(*inputs) -> state`` for a fixed-shape step
     ``step(state, *inputs) -> state`` (``state`` a tuple tree of tensors).
@@ -135,19 +157,7 @@ def cuda_graph_stepper(step: Callable, state, *inputs, graph: bool = True):
         return advance_eager
     bufs = [t.clone() for t in leaves]
     ins = [t.clone() for t in inputs]
-    now = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(now)
-    with torch.cuda.stream(side):
-        for _ in range(2):         # first-use set-up outside the capture
-            step(pytree.tree_unflatten(bufs, spec), *ins)
-    now.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = pytree.tree_leaves(step(pytree.tree_unflatten(bufs, spec),
-                                      *ins))
-        for b, o in zip(bufs, out):
-            b.copy_(o)
+    graph, _, _ = _capture(lambda s, *x: (step(s, *x), ()), bufs, spec, ins)
 
     def advance(*values):
         for b, v in zip(ins, values):
@@ -156,6 +166,82 @@ def cuda_graph_stepper(step: Callable, state, *inputs, graph: bool = True):
         return pytree.tree_unflatten(bufs, spec)
 
     return advance
+
+
+class GraphScan:
+    """``lax.scan`` of a fixed-shape step ``step(carry, *x) -> (carry, y)``
+    over the leading axis of the tensors ``xs``:
+    ``scan(carry, *xs) -> (last carry, ys)``, ``ys`` the ``y`` of every
+    step stacked along a new first axis (a tuple tree like ``y``).
+
+    The samplers feed their random draws in as ``xs``, so the step itself
+    draws nothing and reads nothing back; a step without inputs takes
+    ``length=`` in their place. On CUDA with ``graph`` the step is
+    captured once per shape as a CUDA graph (the capture of
+    :func:`cuda_graph_stepper`), kept across calls, so one step costs the
+    copy of its ``x`` into the graph, one replay and the copy of ``y``
+    out. The carry it returns is the graph's own buffers, which the next
+    call overwrites: a caller copies what it keeps. Without ``graph``,
+    and on the CPU, the step runs eagerly."""
+
+    def __init__(self, step: Callable, graph: bool = True):
+        self.step = step
+        self.graph = graph
+        self._captured = {}
+
+    def __call__(self, carry, *xs, length=None):
+        from torch.utils import _pytree as pytree
+        n = xs[0].shape[0] if xs else length
+        leaves, spec = pytree.tree_flatten(carry)
+        if n == 0:
+            return carry, None
+        if not self.graph or leaves[0].device.type != "cuda":
+            ys = []
+            for k in range(n):
+                carry, y = self.step(carry, *(x[k] for x in xs))
+                ys.append(pytree.tree_flatten(y))
+            yspec = ys[0][1]
+            return carry, pytree.tree_unflatten(
+                [torch.stack(col) for col in zip(*(y for y, _ in ys))],
+                yspec)
+        key = (spec, tuple((t.shape, t.dtype) for t in leaves),
+               tuple((x.shape[1:], x.dtype) for x in xs))
+        if key not in self._captured:
+            bufs = [t.clone() for t in leaves]
+            ins = [x[0].clone() for x in xs]
+            self._captured[key] = (bufs, ins) + _capture(self.step, bufs,
+                                                         spec, ins)
+        bufs, ins, graph, youts, yspec = self._captured[key]
+        for b, t in zip(bufs, leaves):
+            if b is not t:
+                b.copy_(t)
+        ys = [y.new_empty((n,) + y.shape) for y in youts]
+        for k in range(n):
+            for b, x in zip(ins, xs):
+                b.copy_(x[k])
+            graph.replay()
+            for out, y in zip(ys, youts):
+                out[k].copy_(y)
+        return (pytree.tree_unflatten(bufs, spec),
+                pytree.tree_unflatten(ys, yspec))
+
+    def blocks(self, carry, n, size, make_xs):
+        """The scan over ``n`` steps, ``size`` at a time: ``make_xs(start,
+        m)`` gives the inputs of steps ``start`` to ``start + m`` (so the
+        draws of a long run are made a block at a time). Returns (last
+        carry, the ys of all blocks joined along the step axis; None for
+        ``n = 0``)."""
+        from torch.utils import _pytree as pytree
+        outs = []
+        for start in range(0, n, size):
+            m = min(size, n - start)
+            carry, ys = self(carry, *make_xs(start, m), length=m)
+            outs.append(pytree.tree_flatten(ys))
+        if not outs:
+            return carry, None
+        return carry, pytree.tree_unflatten(
+            [torch.cat(col) for col in zip(*(y for y, _ in outs))],
+            outs[0][1])
 
 
 def rk4_step(rhs: Callable):

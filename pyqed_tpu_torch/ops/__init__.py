@@ -1,7 +1,8 @@
-"""Operator algebra (PyTorch): the names of ``pyqed_tpu.ops`` whose
-modules are ported. ``fft``, ``quadrature`` (the Gauss-Hermite module),
-``jointdiag`` and ``ode`` are not yet ported (ROADMAP.md queue 1 item 6);
-the hand-written kernels live in ``ops.kernels``."""
+"""Operator algebra (PyTorch): the names of ``pyqed_tpu.ops``. As there,
+the name ``quadrature`` is the quadrature operator of ``ops/operators``
+(the JAX package's later ``from . import quadrature`` finds the name bound
+and leaves it); the Gauss-Hermite module ``ops/quadrature.py`` is reached
+by its path. The hand-written kernels live in ``ops.kernels``."""
 from .linalg import (
     dag, dagger, commutator, comm, anticommutator, anticomm, tensor,
     tensor_power, ptrace, transform, basis_transform, obs, obs_dm, expect,
@@ -33,3 +34,6 @@ from .expm import (
     krylov_expm_multiply, expm,
 )
 from .davidson import davidson, block_davidson
+from . import fft
+from .jointdiag import joint_diagonalize, qndiag
+from .ode import rkf45, rkf45_sample

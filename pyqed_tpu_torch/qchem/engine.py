@@ -19,58 +19,32 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
 
+from .. import _native
+
 _HERE = Path(__file__).resolve().parent
 SRC = _HERE / "native" / "eri_engine.cpp"
 DERIV_SRC = _HERE / "native" / "eri_deriv.cpp"
-BUILD = _HERE.parent / "build"
+BUILD = _native.BUILD
 CXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 
 def library_path(src: Path = None, flags=None) -> Path:
     """Where the library built from ``src`` (default :data:`SRC`) with
     ``flags`` (default :data:`CXX_FLAGS`) lives."""
-    src = SRC if src is None else Path(src)
-    flags = CXX_FLAGS if flags is None else tuple(flags)
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(flags).encode())
-    return BUILD / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    return _native.library_path(SRC if src is None else src,
+                                CXX_FLAGS if flags is None else flags)
 
 
 def build(src: Path = None, flags=None) -> Path:
     """Compile ``src`` (default :data:`SRC`) unless a library of the same
     hash exists; raise with the compiler's output when it fails."""
-    src = SRC if src is None else Path(src)
-    flags = CXX_FLAGS if flags is None else tuple(flags)
-    so = library_path(src, flags)
-    if so.is_file():
-        return so
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the ERI engine of "
-                           "pyqed_tpu_torch.qchem is compiled at first use")
-    BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    try:
-        proc = subprocess.run([cxx, *flags, str(src), "-o", tmp],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {src}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, so)           # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+    return _native.build(SRC if src is None else src,
+                         CXX_FLAGS if flags is None else flags,
+                         "the ERI engine of pyqed_tpu_torch.qchem")
 
 
 def _load(src, names):

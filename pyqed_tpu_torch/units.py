@@ -82,3 +82,13 @@ atomic_mass = {
     'NH': 284, 'FL': 289, 'MC': 288, 'LV': 292, 'TS': 294,
     'OG': 294,
 }
+
+
+class AtomicUnits:
+    """Named atomic-unit constants (as ``pyqed_tpu.units.AtomicUnits``)."""
+
+    def __init__(self):
+        self.ev = au2ev
+        self.fs = au2fs
+        self.wavenumber = au2wavenumber
+        self.kelvin = au2k

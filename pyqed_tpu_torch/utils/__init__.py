@@ -1,6 +1,13 @@
-"""Utilities (PyTorch): the Wigner-Ville distribution and Wigner
-sampling of ``pyqed_tpu.utils.wigner`` and the cube-file I/O of
-``pyqed_tpu.utils.io``. The other modules of ``pyqed_tpu.utils`` are not
-yet ported."""
+"""Utilities (PyTorch), with the names of ``pyqed_tpu.utils``: quantum
+information (``qip``), colored noise, non-Hermitian eigenproblems, the
+Wigner-Ville distribution and Wigner sampling, and cube-file I/O. The
+plotting module ``style`` is not yet ported (ROADMAP.md queue 1, with
+``beam/``)."""
+from .qip import (
+    reduce_dm, vn_entropy, mutual_info, purity, concurrence, tracedist,
+    hilbert_dist, fidelity, hadamard,
+)
+from .noise import cnoise, autocorrelation
 from .wigner import wigner, spectrogram, wvd, wigner_sample_harmonic
+from .nonherm import eig as nonherm_eig, diabatic_to_adiabatic
 from .io import write_cube, read_cube
