@@ -152,18 +152,18 @@ nonzero:
      the surface Green's function; every launch count stays 0;
    - tensor networks (``phase_tn``; no kernel lies on tn/, every launch
      count stays 0): two-site DMRG on the critical TFIM at L = 100,
-     chi_max 128, 3 sweeps (rel 7.5e-12 of the free-fermion energy at
-     the second; 5 converge to 1e-10), against the free-fermion ground
-     energy (rel <= 1e-8), with bond updates/s, host synchronisations
-     per bond (sync debug mode), device busy share and peak memory; DMRG
-     at L = 20 (chi 32) card vs CPU from the same tensors (energies and
+     chi_max 128, 2 sweeps (rel 7.5e-12 of the free-fermion energy; 5
+     converge to 1e-10), against the free-fermion ground energy (rel <=
+     1e-8), with bond updates/s, host synchronisations per bond (sync
+     debug mode), device busy share and peak memory; DMRG at L = 20 (chi
+     32, one sweep) card vs CPU from the same tensors (energies and
      Schmidt values <= 1e-10); one-site TDVP of the L = 100 ground state
-     quenched to h = 2 (energy conserved <= 1e-10; 2 steps, at 5.5 s a
+     quenched to h = 2 (energy conserved <= 1e-10; 1 step, at 5.5 s a
      step) and TDVP2 at chi 64 (drift printed); TDVP at L = 20 card vs
      CPU over 2 steps (the state and <sx_i> <= 1e-10); TEBD at L = 20
      against the same gates on the dense state (<= 1e-8);
-     Pyrazine4().spectral_dynamics() at its defaults but 30 steps (60
-     there), card vs CPU over the first 20 (<= 1e-8), and at chi 64,
+     Pyrazine4().spectral_dynamics() at its defaults but 20 steps (60
+     there), card vs CPU over those 20 (<= 1e-8), and at chi 64,
      exact for the
      3 x 8^4 chain, its start padded to chi 64, 20 steps against SciPy's
      expm_multiply of the sparse LVC Hamiltonian from the same
@@ -243,6 +243,18 @@ nonzero:
      CPU; statistical gates at 5 standard errors; sweeps/s, walker-steps/s,
      device time and busy share of the graphed steps, host calls per sweep
      eager and graphed, peak memory; no kernel launches;
+   - beam/ (``phase_beam``): a lens-and-sphere scene (scenes.sphere_xyz,
+     index 1.5 in a background at n = 1) on 512^2 x 1,024 planes through
+     ScalarFieldXYZ.bpm, .wpm and .pwd (complex128, 4.29 GB a stack),
+     planes/s, device time per plane by kernel, busy share, bound and
+     peak memory; bpm without a scene and pwd against propagate() (<=
+     1e-10) and one-level wpm against pwd (<= 1e-12) at full width;
+     VectorFieldXYZ.propagate at 512^2 x 256 planes; ScalarFieldXY.RS at
+     2,048^2 (padded 4,095^2) against the angular spectrum and zoom_dft2
+     at 2,048^2 against the FFT; a 40-layer Bragg stack's spectrum at
+     2^20 frequencies (energy conservation) and its quasinormal modes;
+     the same calls at 64^2 x 32 planes card vs CPU (<= 1e-10); no kernel
+     launches; matplotlib not imported;
 5. timing, for the record (CUDA events over eager calls after warm-up,
    in turns: plain, kernel, library, kernel, plain): kernel, plain
    version and one-call PyTorch yardstick per call (the HEOM coupling
@@ -273,16 +285,15 @@ commutator's backward (the kernel on -H_eff^dag and the cotangent) at
 n = 1024 against the plain backward and two ZGEMMs (its kernels entry
 ``liouvillian_commutator_backward``).
 
-The line before the last is a JSON summary of the kernels (the generic
-SPO branch as ``spo_potential_generic``, timed at the main path's
-1,024 x 10 with its 2^20-point times beside; the batched coupling as
-``heom_coupling_batched``), with the 2DES, DEOM, driven-HEOM, polariton,
-LDR, open, nonadiabatic, field-2DES, grid, tn, control, qchem, qchem_rest,
-negf and qmc gates and times under "slices" (each phase's seconds under "phase_s", also logged
-as it ends);
-the last line
-is {"ok": true, "device": {...}}. Without a CUDA device it raises before
-printing any result.
+Near the end, one JSON line holds "slices": the 2DES, DEOM, driven-HEOM,
+polariton, LDR, open, nonadiabatic, field-2DES, grid, tn, control, qchem,
+qchem_rest, negf, qmc and beam gates and times (each phase's seconds
+under "phase_s", also logged as it ends). The line before the last is a
+compact JSON summary of the kernels (the generic SPO branch as
+``spo_potential_generic``, timed at the main path's 1,024 x 10 with its
+2^20-point times beside; the batched coupling as
+``heom_coupling_batched``); the last line is {"ok": true, "device":
+{...}}. Without a CUDA device it raises before printing any result.
 
     python3 chip_smoke.py --ab PARENT [PAIRS]
 
@@ -3915,20 +3926,20 @@ def phase_grid_rest(card):
 # ---------------------------------------------------------------- tn/
 TN_L = 100                    # DMRG at full width: critical TFIM, L = 100
 TN_CHI = 128
-TN_SWEEPS = 3                 # 3 of the 5 that converge to 1e-10 (rel
-#                               7.5e-12 of the free-fermion energy at 2;
-#                               the middle bond is at 114 after 2)
+TN_SWEEPS = 2                 # 2 of the 5 that converge to 1e-10: rel
+#                               7.5e-12 of the free-fermion energy (the
+#                               middle bond reaches 114 of chi_max 128)
 TN_PROBE_BONDS = 10           # bond updates timed, profiled and sync-counted
 TN_CPU_L = 20                 # card vs CPU: DMRG, TDVP, TEBD at L = 20
 TN_CPU_CHI = 32
-TN_CPU_SWEEPS = 2
+TN_CPU_SWEEPS = 1
 TN_TDVP_DT = 0.05
-TN_TDVP_NT = 2                # the L = 100 quench to h = 2 (5.5 s a step)
+TN_TDVP_NT = 1                # the L = 100 quench to h = 2 (5.5 s a step)
 TN_TDVP_CPU_NT = 2
 TN_TDVP2_CHI = 64
 TN_TDVP2_NT = 1
 TN_TEBD_NT = 40
-TN_PYR = dict(nb=8, nt=30, nout=10)   # Pyrazine4.spectral_dynamics' defaults
+TN_PYR = dict(nb=8, nt=20, nout=10)   # Pyrazine4.spectral_dynamics' defaults
 #                                       but nt (60 there)
 TN_PYR_SHORT_NT = 20          # the CPU reference and the chi 64 exact check
 TT_LEVEL = 5                  # examples/ttldr_vibronic.py's model, 31^2 x 2
@@ -5750,6 +5761,355 @@ def phase_qmc(card):
     return out
 
 
+# ---------------------------------------------------------------- beam
+BEAM_WL = 0.6328                  # um, HeNe
+BEAM_N = 512                      # transverse points per axis
+BEAM_SPAN = 200.0                 # um across the grid (dx 0.39 um)
+BEAM_NZ = 1024                    # planes of the BPM/WPM/PWD volume
+BEAM_DEPTH = 400.0                # um: planes at 400/1024 um steps
+BEAM_LENS = ((0.0, 0.0, 40.0), (80.0, 80.0, 15.0))   # ellipsoid lens
+BEAM_SPHERE = ((0.0, 0.0, 250.0), 30.0)              # the sphere
+BEAM_INDEX = 1.5                  # both objects, in a background at n = 1
+BEAM_W0 = 60.0                    # um, Gaussian incident waist
+BEAM_VEC_NZ = 256                 # VectorFieldXYZ.propagate planes
+BEAM_RS_N = 2048                  # ScalarFieldXY.RS, padded to 4,095^2
+BEAM_ZOOM_N = 2048                # zoom_dft2 input and output grids
+BEAM_NW = 2 ** 20                 # Bragg-stack frequencies
+BEAM_LAYERS = 40                  # the Bragg stack: 20 (n_H, n_L) pairs
+BEAM_CHECK = (64, 32)             # card vs CPU: 64^2 x 32 planes
+BEAM_PROFILE_PLANES = 64          # planes per profiled window
+
+
+def beam_scene(n, nz, device):
+    """The lens-and-sphere scene on an n x n x nz grid of the phase's
+    span and depth: (x, z, index volume, incident Gaussian field)."""
+    from pyqed_tpu_torch.beam import masks, scenes
+    x = np.linspace(-BEAM_SPAN / 2, BEAM_SPAN / 2, n)
+    z = np.linspace(BEAM_DEPTH / nz, BEAM_DEPTH, nz)
+    vol = torch.ones((nz, n, n), dtype=torch.float64, device=device)
+    for r0, radius in (BEAM_LENS, BEAM_SPHERE):
+        vol = scenes.sphere_xyz(vol, x, x, z, r0, radius, BEAM_INDEX)
+    X, Y = torch.meshgrid(torch.as_tensor(x, device=device),
+                          torch.as_tensor(x, device=device), indexing="ij")
+    u0 = masks.gauss_beam(X, Y, BEAM_WL, BEAM_W0)
+    return x, z, vol, u0
+
+
+def stack_rel(a, b, chunk=64):
+    """max |a - b| / max |b| over two (nz, ...) stacks, a chunk of planes
+    at a time (no full-size temporary)."""
+    num = den = 0.0
+    for k in range(0, a.shape[0], chunk):
+        num = max(num, float(torch.max(torch.abs(a[k:k + chunk]
+                                                 - b[k:k + chunk]))))
+        den = max(den, float(torch.max(torch.abs(b[k:k + chunk]))))
+    return num / den
+
+
+def bragg_stack():
+    """A quarter-wave Bragg mirror of BEAM_LAYERS layers (n 2.3 and 1.5
+    at a design frequency of 2 pi), on glass (1.45)."""
+    ns = [2.3, 1.5] * (BEAM_LAYERS // 2)
+    ls = [0.25 / n for n in ns]
+    return ns, ls
+
+
+def beam_cpu_vs_card(card, bgate):
+    """The phase's calls at 64^2 x 32 planes (and a 2^12-frequency
+    spectrum), on the card and on the CPU, rel <= 1e-10."""
+    from pyqed_tpu_torch import beam
+    n, nz = BEAM_CHECK
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        x, z, vol, u0 = beam_scene(n, nz, dev)
+        f = beam.ScalarFieldXYZ(x, x, z, BEAM_WL, device=dev)
+        f.incident_field(u0)
+        v = beam.VectorFieldXYZ(x, x, z, BEAM_WL, device=dev)
+        v.incident_field(u0, 0.5j * u0)
+        v.propagate()
+        g = beam.ScalarFieldXY(x, x, BEAM_WL, u=u0, device=dev).RS(300.0)
+        ns, ls = bragg_stack()
+        omegas = np.linspace(3.0, 9.0, 4096)
+        fo = np.linspace(-0.05, 0.05, n)
+        outs[dev] = [f.bpm(n_volume=vol), f.wpm(n_volume=vol), f.pwd(),
+                     f.propagate(), v.Ex, v.Ez, g.u,
+                     beam.zoom_dft2(u0, x, x, fo, fo),
+                     beam.transmittance_spectrum(omegas, ns, ls, 1.0, 1.45,
+                                                 device=dev),
+                     torch.as_tensor(beam.quasinormal_modes(
+                         ns, ls, [5.0, 5.6, 7.2], 1.0, 1.45, device=dev))]
+    names = ("bpm", "wpm", "pwd", "propagate", "vector Ex", "vector Ez",
+             "RS", "zoom_dft2", "transmittance", "QNM")
+    for name, a, b in zip(names, outs[DEVICE], outs["cpu"]):
+        bgate(f"{name} at {n}^2 x {nz} planes: card vs CPU (rel)",
+              rel(a.cpu(), b), 1e-10)
+
+
+def beam_volume(card, out, name, run, planes, bytes_per_plane):
+    """Time ``run()`` (one call that fills ``planes`` planes), then its
+    device time per plane by kernel on a BEAM_PROFILE_PLANES window (the
+    same method on the first planes of the same scene), busy share and
+    bound. Returns the stack."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    stack, wall = timed(run)
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+    rate = planes / wall
+    b_ms, b_by = bound_ms(bytes_per_plane, 0)
+    out[name] = dict(planes=planes, wall_s=wall, planes_per_s=rate,
+                     peak_gib_above_start=peak, bound_us=b_ms * 1e3,
+                     bound_by=b_by)
+    log(f"[beam] {name}: {planes} planes of {BEAM_N}^2 in {wall:.3f} s, "
+        f"{rate:,.0f} planes/s; peak {peak:.2f} GiB above the "
+        f"{before / 2 ** 30:.2f} GiB held before ({card})")
+    return stack
+
+
+def beam_profile(card, out, name, advance, rate, bytes_per_plane):
+    """Device time per plane of ``advance()`` (which fills
+    BEAM_PROFILE_PLANES planes) by kernel, the busy share at ``rate``
+    planes/s, and the step against its HBM bound."""
+    advance()
+    # the largest of three windows: a window whose trace lost events
+    # (seen on the card: one chunk of four recorded; cause not found)
+    # reads low
+    total, rows = max(profile_steps(advance, 1, per=BEAM_PROFILE_PLANES)
+                      for _ in range(3))
+    if not total > 0:
+        raise AssertionError(f"beam {name}: the profiler saw no device time")
+    b_ms, _ = bound_ms(bytes_per_plane, 0)
+    out[name].update(device_us_per_plane=total, busy=total / 1e6 * rate,
+                     bound_share=b_ms * 1e3 / total,
+                     kernels=[[round(u, 3), c, k[:60]] for u, c, k in rows[:6]])
+    log(f"[beam] {name}: {total:.1f} us of device time per plane, busy "
+        f"{total / 1e6 * rate:.3f}; bound {b_ms * 1e3:.2f} us (bytes), "
+        f"{b_ms * 1e3 / total:.3f} of it ({card})")
+    for us_, count, key in rows[:6]:
+        log(f"[beam]   {us_:9.2f} us  x{count:<5g} {key[:80]}")
+
+
+def phase_beam(card):
+    """beam/ on the card (no TPU kernel lies on it, so every launch count
+    stays 0): a lens (an ellipsoid, (80, 80, 15) um) and a sphere (30 um)
+    of index 1.5 in a background at n = 1, built by scenes.sphere_xyz on
+    512^2 transverse points (200 um) x 1,024 planes (400 um), lit by a
+    Gaussian of 60 um waist at 0.6328 um. ScalarFieldXYZ.bpm, .wpm (the
+    same two-level scene) and .pwd through the whole volume, complex128
+    (each stack 4.29 GB; the index volume 2.15 GB), with planes/s, device
+    time per plane by kernel, busy share, the step against its HBM bound
+    and peak memory; gates at full width: bpm(n_volume=None,
+    has_edges=False) and pwd() against propagate() (<= 1e-10 rel),
+    wpm(levels=[1], has_edges=False) on the uniform volume against pwd()
+    (<= 1e-12); VectorFieldXYZ.propagate at 512^2 x 256 planes
+    (Ex against ScalarFieldXYZ.propagate() and Ey against 0.5j times it,
+    <= 1e-12; k.E kept as a record); ScalarFieldXY.RS at 2,048^2
+    (padded to 4,095^2) against the angular spectrum in its paraxial
+    zone, zoom_dft2 at 2,048^2 against the FFT on its own grid; a 40-layer
+    Bragg stack's transmittance over 2^20 frequencies (|r|^2 + |t|^2 n_out
+    = 1 <= 1e-10) and quasinormal_modes on it (|M11| at the poles); the
+    same calls at 64^2 x 32 planes card vs CPU (<= 1e-10); matplotlib
+    not imported."""
+    import sys
+    from pyqed_tpu_torch import beam
+    t_phase = time.perf_counter()
+    out = {"card": card, "gates": {}}
+    reset_counts()
+
+    def bgate(label, val, tol):
+        out["gates"][label] = gate("beam", label, val, tol)
+
+    n, nz = BEAM_N, BEAM_NZ
+    (x, z, vol, u0), wall = timed(lambda: beam_scene(n, nz, DEVICE))
+    levels = torch.unique(vol).tolist()
+    out["scene"] = dict(n=n, nz=nz, build_s=wall, levels=levels,
+                        inside=float((vol > 1).double().mean()),
+                        index_gib=vol.numel() * 8 / 2 ** 30)
+    log(f"[beam] scene {n}^2 x {nz} planes built in {wall:.3f} s: levels "
+        f"{levels}, {out['scene']['inside']:.4f} of the volume inside "
+        f"({card})")
+    field = beam.ScalarFieldXYZ(x, x, z, BEAM_WL, device=DEVICE)
+    field.incident_field(u0)
+    plane = n * n
+    # bytes a plane step must move at the least: the field in and out,
+    # and (BPM, WPM) the index plane read once; propagate reads U0 once
+    # for the whole stack, so its planes are only written
+    by_scene, by_free, by_out = 40 * plane, 32 * plane, 16 * plane
+    k = BEAM_PROFILE_PLANES
+    short = beam.ScalarFieldXYZ(x, x, z[:k], BEAM_WL, device=DEVICE)
+    short.incident_field(u0)
+    vol_k = vol[:k]
+    methods = (
+        ("bpm", lambda f, v: f.bpm(n_volume=v), by_scene),
+        ("wpm", lambda f, v: f.wpm(n_volume=v), by_scene),
+        ("pwd", lambda f, v: f.pwd(), by_free),
+        ("propagate", lambda f, v: f.propagate(), by_out))
+    # the first BEAM_PROFILE_PLANES planes warm each method up (cuFFT
+    # plans, first launches) before the whole volume is timed
+    for name, run, _ in methods:
+        run(short, vol_k)
+    vols = {}
+    for name, run, nbytes in methods:
+        stack = beam_volume(card, out, name, lambda: run(field, vol), nz,
+                            nbytes)
+        finite = bool(torch.isfinite(stack[-1]).all())
+        power = float(torch.sum(torch.abs(stack[-1]) ** 2)
+                      / torch.sum(torch.abs(u0) ** 2))
+        out[name].update(finite=finite, exit_power=power)
+        if not finite:
+            raise AssertionError(f"beam {name}: non-finite field")
+        if name in ("bpm", "wpm"):
+            vols[name] = stack[:: nz // 8].clone()
+        del stack
+    # the split-step and the exact-kernel method on the same scene, for
+    # the record (index contrast 0.5 is far from BPM's paraxial regime)
+    out["bpm_vs_wpm_rel"] = stack_rel(vols["bpm"], vols["wpm"])
+    log(f"[beam] bpm against wpm, 8 planes of the scene: rel "
+        f"{out['bpm_vs_wpm_rel']:.3e}; exit power bpm "
+        f"{out['bpm']['exit_power']:.4f}, wpm {out['wpm']['exit_power']:.4f}"
+        f" ({card})")
+    del vols
+    # device time per plane, on the first BEAM_PROFILE_PLANES planes
+    for name, run, nbytes in methods:
+        beam_profile(card, out, name, lambda: run(short, vol_k),
+                     out[name]["planes_per_s"], nbytes)
+    del vol, vol_k, short
+    # ---- gates at full width on the uniform volume
+    ref = field.propagate()
+    bpm0 = field.bpm(n_volume=None, has_edges=False)
+    bgate(f"bpm(n_volume=None, has_edges=False) vs propagate(), {n}^2 x "
+          f"{nz} planes (rel)", stack_rel(bpm0, ref), 1e-10)
+    del bpm0
+    pwd0 = field.pwd()
+    bgate(f"pwd() vs propagate(), {n}^2 x {nz} planes (rel)",
+          stack_rel(pwd0, ref), 1e-10)
+    del ref
+    wpm0 = field.wpm(levels=[1.0], has_edges=False)
+    bgate(f"wpm(levels=[1], has_edges=False) vs pwd() on the uniform "
+          f"volume, {n}^2 x {nz} planes (rel)", stack_rel(wpm0, pwd0),
+          1e-12)
+    del wpm0, pwd0, field
+    torch.cuda.empty_cache()
+    # ---- vector volume
+    vz = z[:BEAM_VEC_NZ]
+    beam.VectorFieldXYZ(x, x, vz[:BEAM_PROFILE_PLANES], BEAM_WL,
+                        device=DEVICE).incident_field(u0, u0).propagate()
+    vec = beam.VectorFieldXYZ(x, x, vz, BEAM_WL, device=DEVICE)
+    vec.incident_field(u0, 0.5j * u0)
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = timed(vec.propagate)
+    out["vector"] = dict(planes=len(vz), wall_s=wall,
+                         planes_per_s=len(vz) / wall,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    kx = torch.as_tensor(2 * np.pi * np.fft.fftfreq(n, x[1] - x[0]),
+                         device=DEVICE)
+    last = [torch.fft.fft2(E[-1]) for E in (vec.Ex, vec.Ey, vec.Ez)]
+    kz = torch.sqrt((2 * np.pi / BEAM_WL) ** 2 - kx[:, None] ** 2
+                    - kx[None, :] ** 2 + 0j)
+    div = kx[:, None] * last[0] + kx[None, :] * last[1] + kz * last[2]
+    # Ez is built from k.E = 0, so this is a record and cannot fail
+    out["vector"]["k_dot_E_rel"] = float(
+        torch.max(torch.abs(div))
+        / (2 * np.pi / BEAM_WL * torch.max(torch.abs(last[0]))))
+    del last, div
+    # the transverse components against the scalar angular spectrum of
+    # the same incident fields, every plane
+    sref = beam.ScalarFieldXYZ(x, x, vz, BEAM_WL, device=DEVICE)
+    sref.incident_field(u0)
+    sref = sref.propagate()
+    bgate(f"VectorFieldXYZ.propagate {n}^2 x {len(vz)} planes: Ex vs "
+          "ScalarFieldXYZ.propagate() (rel)", stack_rel(vec.Ex, sref), 1e-12)
+    sref.mul_(0.5j)
+    bgate(f"VectorFieldXYZ.propagate {n}^2 x {len(vz)} planes: Ey vs 0.5j "
+          "ScalarFieldXYZ.propagate() (rel)", stack_rel(vec.Ey, sref), 1e-12)
+    log(f"[beam] VectorFieldXYZ.propagate: {len(vz)} planes of {n}^2 in "
+        f"{wall:.3f} s, {len(vz) / wall:,.0f} planes/s, peak "
+        f"{out['vector']['peak_gib']:.2f} GiB; k.E at the last plane "
+        f"{out['vector']['k_dot_E_rel']:.3e} of |k||E| (record) ({card})")
+    del vec, sref
+    torch.cuda.empty_cache()
+    # ---- Rayleigh-Sommerfeld and zoom at 2,048^2
+    nr = BEAM_RS_N
+    xr = np.linspace(-BEAM_SPAN, BEAM_SPAN, nr)
+    Xr, Yr = torch.meshgrid(torch.as_tensor(xr, device=DEVICE),
+                            torch.as_tensor(xr, device=DEVICE),
+                            indexing="ij")
+    ur = beam.masks.gauss_beam(Xr, Yr, BEAM_WL, 30.0)
+    zr = 500.0
+    beam.ScalarFieldXY(xr, xr, BEAM_WL, u=ur, device=DEVICE).RS(zr)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    rs, wall = timed(lambda: beam.ScalarFieldXY(
+        xr, xr, BEAM_WL, u=ur, device=DEVICE).RS(zr))
+    asm = beam.ScalarFieldXY(xr, xr, BEAM_WL, u=ur, device=DEVICE)
+    asm.angular_spectrum(zr)
+    core = slice(nr // 4, 3 * nr // 4)
+    out["rs"] = dict(n=nr, padded=2 * nr - 1, wall_s=wall,
+                     quality=rs.quality,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    bgate(f"RS at {nr}^2 (padded {2 * nr - 1}^2), z = {zr} um, vs the "
+          "angular spectrum on the central half (rel)",
+          rel(rs.u[core, core], asm.u[core, core]), 1e-9)
+    log(f"[beam] ScalarFieldXY.RS {nr}^2 -> {2 * nr - 1}^2 in {wall:.3f} s, "
+        f"quality {rs.quality:.2f}, peak {out['rs']['peak_gib']:.2f} GiB "
+        f"({card})")
+    del rs, asm
+    nzm = BEAM_ZOOM_N
+    lo = nr // 2 - nzm // 2        # the central nzm of the FFT's frequencies
+    fo = np.fft.fftshift(np.fft.fftfreq(nr, xr[1] - xr[0]))[lo:lo + nzm]
+    beam.zoom_dft2(ur, xr, xr, fo, fo)                             # warm
+    zd, wall = timed(lambda: beam.zoom_dft2(ur, xr, xr, fo, fo))
+    shift = torch.exp(-2j * np.pi * torch.as_tensor(fo, device=DEVICE)
+                      * xr[0])
+    ref = (torch.fft.fftshift(torch.fft.fft2(ur))[lo:lo + nzm, lo:lo + nzm]
+           * (xr[1] - xr[0]) ** 2 * shift[:, None] * shift[None, :])
+    out["zoom"] = dict(n=nzm, wall_s=wall)
+    bgate(f"zoom_dft2 {nr}^2 -> {nzm}^2 on the FFT's own frequencies vs "
+          "the FFT (rel)", rel(zd, ref), 1e-9)
+    log(f"[beam] zoom_dft2 {nr}^2 -> {nzm}^2 in {wall:.3f} s ({card})")
+    del zd, ref, ur, Xr, Yr
+    torch.cuda.empty_cache()
+    # ---- photonics
+    ns, ls = bragg_stack()
+    omegas = torch.linspace(0.5, 12.0, BEAM_NW, dtype=torch.float64,
+                            device=DEVICE)
+    r, t = beam.rt_coefficients(omegas, ns, ls, 1.0, 1.45, device=DEVICE)
+    T, wall = timed(lambda: beam.transmittance_spectrum(
+        omegas, ns, ls, 1.0, 1.45, device=DEVICE))
+    bgate(f"Bragg stack ({BEAM_LAYERS} layers) over {BEAM_NW} frequencies: "
+          "|r|^2 + 1.45 |t|^2 - 1", float(torch.max(torch.abs(
+              torch.abs(r) ** 2 + 1.45 * torch.abs(t) ** 2 - 1))), 1e-10)
+    stop = float(T[torch.argmin(torch.abs(omegas - 2 * np.pi))])
+    guesses = [5.0, 5.4, 7.2, 7.6, 9.0, 9.5]
+    qnm, wall_q = timed(lambda: beam.quasinormal_modes(
+        ns, ls, guesses, 1.0, 1.45, device=DEVICE))
+    m11 = beam.transfer_matrix(torch.as_tensor(qnm, device=DEVICE), ns, ls,
+                               1.0, 1.45, device=DEVICE)[:, 1, 1]
+    bgate("quasinormal modes: |M11| at the poles", float(
+        torch.max(torch.abs(m11))), 1e-10)
+    if not np.all(qnm.imag < 0):
+        raise AssertionError(f"beam: QNMs not decaying: {qnm}")
+    out["photonic"] = dict(frequencies=BEAM_NW, layers=BEAM_LAYERS,
+                           wall_s=wall, frequencies_per_s=BEAM_NW / wall,
+                           stopband_T=stop, qnm=[[w.real, w.imag]
+                                                 for w in qnm],
+                           qnm_s=wall_q)
+    log(f"[beam] transmittance of {BEAM_LAYERS} layers at {BEAM_NW} "
+        f"frequencies in {wall * 1e3:.2f} ms; T at the design frequency "
+        f"{stop:.3e}; {len(guesses)} QNMs in {wall_q:.2f} s: "
+        + ", ".join(f"{w.real:.4f}{w.imag:+.4f}i" for w in qnm)
+        + f" ({card})")
+    del omegas, r, t, T
+    beam_cpu_vs_card(card, bgate)
+    no_launches("beam")
+    out["launches"] = read_counts()
+    if "matplotlib" in sys.modules:
+        raise AssertionError("beam: matplotlib was imported")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[beam] launch counts {read_counts()} (all 0); matplotlib not "
+        f"imported; phase {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 PHASE_S = {}
 
 
@@ -5801,6 +6161,7 @@ def main():
     slices["qchem_rest"] = clocked(phase_qchem_rest, card, benzene)
     slices["negf"] = clocked(phase_negf, card)
     slices["qmc"] = clocked(phase_qmc, card)
+    slices["beam"] = clocked(phase_beam, card)
     times = clocked(phase_timing, card, shapes)
     spo_times = clocked(phase_spo_timing, card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0
@@ -5927,7 +6288,10 @@ def main():
     slices["script_s"] = time.perf_counter() - t_start
     log(f"[done] chip_smoke.py {slices['script_s']:.1f} s, the build "
         f"included ({card})")
-    log(json.dumps({"kernels": kernels, "slices": slices}))
+    # the slices first (a long line); the kernels on a compact line of
+    # their own just before the last, inside the tail of the output
+    log(json.dumps({"slices": slices}))
+    log(json.dumps({"kernels": kernels}, separators=(",", ":")))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

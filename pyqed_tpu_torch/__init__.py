@@ -97,6 +97,15 @@ Ported so far:
   CUDA graph on the card (``core.dynamics.GraphScan``). No TPU kernel lies
   on them.
 
+- optics: ``beam`` (scalar and vector diffraction of X, XY, XZ and XYZ
+  fields, split-step BPM, WPM and PWD through index volumes, masks,
+  scenes, Jones calculus, zoom FFTs, transfer-matrix photonics, dyadic
+  Green's functions, drawing), the plotting wrappers of ``utils.style``
+  (re-exported here) and the ``pyqed-tpu-torch`` command line
+  (``cli.py``). No TPU kernel lies on them: the volume propagators are
+  loops of ``torch.fft`` (cuFFT) steps that write into preallocated
+  stacks. matplotlib is imported only when something is drawn.
+
 The package surface mirrors ``pyqed_tpu``'s for every ported module
 (``tests/test_torch_surface.py``); ``use_x64``/``x64_enabled`` are
 accepted and change nothing, since torch always has float64.
@@ -159,3 +168,8 @@ from .ops.operators import (
     jacobi_anger, propagator, propagator_H_const,
 )
 from .ops.expm import chebyshev_expm_multiply
+from . import beam
+from .utils.style import (
+    set_style, subplots, curve, matplot, imshow, level_scheme,
+    two_scales, surf, plot_surface, plot_surfaces, export, read_result,
+)

@@ -19,19 +19,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF = ROOT / "pyqed_tpu"
 PORT = ROOT / "pyqed_tpu_torch"
 PACKAGES = ("", "ops", "core", "open", "grid", "models", "signal", "utils",
-            "floquet", "tn", "control", "qchem", "negf", "qmc", "md", "ml")
+            "floquet", "tn", "control", "qchem", "negf", "qmc", "md", "ml",
+            "beam")
 
-BEAM = "queue 1 item 5 (beam/, with utils/style and cli.py)"
 PARALLEL = "queue 1 item 6 (parallel/)"
 
-_STYLE = ("set_style", "subplots", "curve", "matplot", "imshow",
-          "level_scheme", "two_scales", "surf", "plot_surface",
-          "plot_surfaces", "export", "read_result")
-MISSING = {
-    **{("", n): BEAM for n in _STYLE},
-    ("", "parallel"): PARALLEL, ("", "beam"): BEAM,
-    ("utils", "style"): BEAM,
-}
+MISSING = {("", "parallel"): PARALLEL}
 
 
 def _module_names(path):
