@@ -310,6 +310,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -322,6 +323,7 @@ FLAGSHIP = dict(temperature=300.0, lmax=3, nexp=1, decomposition="pade")
 DT = 10.0          # au
 NT = 4000          # 4000 x 10 au = 967.6 fs
 NOUT = 40
+NT_CHECK = 1000    # the driven run's comparisons: 241.9 fs, past the pulse
 DEVICE = "cuda"
 
 SPO_N = 256        # the chip-scale grid of bench.py's bench_spo3_tpu
@@ -1201,10 +1203,11 @@ def max_diff(a, b, fields=("observables", "ado")):
 
 def phase_heom_driven():
     """Driven HEOM at the FMO flagship (680 ADOs, 4000 RK4 steps of 10 au)
-    through the coupling kernel: launch count 4 x nt, against the driven
-    einsum run on the card, trace error, the first window against the CPU,
-    a zero-amplitude drive against the undriven run, and a run
-    checkpointed every 7 windows against the single run."""
+    through the coupling kernel: launch count 4 x nt, trace error, the
+    first window against the CPU; over the first NT_CHECK steps, against
+    the driven einsum run on the card, a zero-amplitude drive against the
+    undriven run, and a run checkpointed every 7 windows against the
+    single run."""
     from pyqed_tpu_torch import FMO
     from pyqed_tpu_torch.core.diagnostics import load_checkpoint
     m = FMO()
@@ -1216,14 +1219,17 @@ def phase_heom_driven():
     res, counts, wall = counted_run(sol, rho0, "driven FMO", **drive, **kw)
     expect_only(counts, "heom_coupling", 4 * NT, "driven FMO")
     trace_err = (res.observables.real.sum(dim=1) - 1.0).abs().max().item()
-    d_ein = max_diff(res, sol.run(rho0, kernel="einsum", **drive, **kw))
     cpu = m.heom(**FLAGSHIP, device="cpu").run(
         rho0, dt=DT, nt=NOUT, nout=NOUT, e_ops=m.site_projectors(), **drive)
     d_cpu = (res.observables[:2].cpu() - cpu.observables).abs().max().item()
+    # the comparisons over the first NT_CHECK steps (past the pulse)
+    kw = dict(kw, nt=NT_CHECK)
+    short = sol.run(rho0, **drive, **kw)
+    d_ein = max_diff(short, sol.run(rho0, kernel="einsum", **drive, **kw))
     undriven = sol.run(rho0, **kw)
     zero = sol.run(rho0, edip=X, pulse=fmo_drive(0.0)[1].efield, **kw)
     d_zero = max_diff(zero, undriven)
-    effect = (res.observables - undriven.observables).abs().max().item()
+    effect = (short.observables - undriven.observables).abs().max().item()
     ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build")
     os.makedirs(ck_dir, exist_ok=True)
@@ -1231,8 +1237,8 @@ def phase_heom_driven():
     chunked = sol.run(rho0, checkpoint=ck, checkpoint_every=7, **drive, **kw)
     step, (ados_ck,), _ = load_checkpoint(ck)
     os.remove(ck)
-    d_ck = max(max_diff(chunked, res, ("observables", "ado", "states")),
-               (ados_ck.to(DEVICE) - res.ado).abs().max().item())
+    d_ck = max(max_diff(chunked, short, ("observables", "ado", "states")),
+               (ados_ck.to(DEVICE) - short.ado).abs().max().item())
     log(f"[driven] FMO flagship nado={res.ado.shape[0]} nt={NT} dt={DT}, "
         f"X = |1><2| + |2><1| under a GaussianPulse ({DRIVE_CM[0]:g} cm^-1, "
         f"{DRIVE_FS[0]:g} fs, at {DRIVE_FS[1]:g} fs, {DRIVE_CM[1]:g} cm^-1) "
@@ -1250,7 +1256,7 @@ def phase_heom_driven():
                            ("chunked vs single", d_ck, 1e-12)):
         if not val <= tol:
             raise AssertionError(f"driven FMO: {name} {val:.3e} > {tol:g}")
-    if not effect > 1e-6 or step != NT // NOUT:
+    if not effect > 1e-6 or step != NT_CHECK // NOUT:
         raise AssertionError(f"driven FMO: the drive moved the populations "
                              f"by {effect:.3e}; last checkpoint {step}")
     return {"launches": counts["heom_coupling"], "trace_err": trace_err,
@@ -1623,8 +1629,9 @@ def profile_steps(advance, steps, per=None):
     (total us per step, rows of (us per step, kernels per step, name),
     longest first)."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    # the device's activity alone: the host's ops slow key_averages and
+    # add no device time
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
             advance()
@@ -2783,6 +2790,7 @@ NAMD_NX = 2048                # tests/test_namd_adiabatic.py's model
 NAMD_DT = 0.25
 NAMD_NT = 4000
 NAMD_NOUT = 1000
+NAMD_CPU_NT = 250             # card vs CPU over the first 250 steps
 PYR_N = 256                   # Pyrazine.spo() on 256 x 256 x 3
 PYR_DT = 10.0
 PYR_NT = 2000
@@ -3120,11 +3128,12 @@ def phase_namd(card, out):
                                                   .max()), 2e-4)
     out["namd_norm"] = gate("nonadiabatic", "NAMD norm error",
                             abs(float(sol.norm(rn.psi)) - 1.0), 1e-4)
+    rs = sol.run(psi0, dt=NAMD_DT, nt=NAMD_CPU_NT, nout=NAMD_CPU_NT)
     rc = NAMD(x, v, nac, mass=1000.0, order=2, device="cpu").run(
-        psi0, dt=NAMD_DT, nt=NAMD_NOUT, nout=NAMD_NOUT)
+        psi0, dt=NAMD_DT, nt=NAMD_CPU_NT, nout=NAMD_CPU_NT)
     out["namd_card_vs_cpu"] = gate("nonadiabatic",
-        f"NAMD card vs CPU after {NAMD_NOUT} steps",
-        rel(rn.states[1].cpu(), rc.states[1]), 1e-10)
+        f"NAMD card vs CPU after {NAMD_CPU_NT} steps",
+        rel(rs.states[1].cpu(), rc.states[1]), 1e-10)
     psi = [torch.as_tensor(psi0, device=DEVICE)]
 
     def advance():
@@ -3412,8 +3421,7 @@ def phase_field2des(card):
     nt_total = f2des_nt_total(F2D_NT1, F2D_NT3)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]     # as profile_steps
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         P3, _, t3s = f2des_run(sol, rho0, mu, F2D_NT1)
@@ -3929,7 +3937,7 @@ TN_CHI = 128
 TN_SWEEPS = 2                 # 2 of the 5 that converge to 1e-10: rel
 #                               7.5e-12 of the free-fermion energy (the
 #                               middle bond reaches 114 of chi_max 128)
-TN_PROBE_BONDS = 10           # bond updates timed, profiled and sync-counted
+TN_PROBE_BONDS = 4            # bond updates timed, profiled and sync-counted
 TN_CPU_L = 20                 # card vs CPU: DMRG, TDVP, TEBD at L = 20
 TN_CPU_CHI = 32
 TN_CPU_SWEEPS = 1
@@ -6113,6 +6121,297 @@ def phase_beam(card):
 PHASE_S = {}
 
 
+# ------------------------------------------------------------ parallel/
+PAR_HEOM_NT = 400             # the flagship under a one-rank mesh
+PAR_SPO_NT = 40               # SPO3 256^3 x 2 through the pencil KEO
+PAR_F2D_NT3 = 32              # B = 4 x 4 x F2D_NT1 = 256, a short detection
+PAR_DMC_NT = 200              # DMC at QMC_DMC's 65,536 walkers
+PAR_FSSH_NT = 400             # FSSH at NA_NTRAJ = 20,000 trajectories
+PAR_LDR_NT = 100              # phase_ldr's level-5 model, dense
+PAR_PIMC = dict(npaths=2048, nsweeps=20, ntherm=10, step=0.5)
+PAR_QS_SWEEPS = 4             # QSATS at phase_qmc's 512 walkers
+PAR_QS_REPEATS = 3            # more unsharded QSATS runs, a record
+PAR_PE = (256, 32)            # photon echo: 256^2 (omega1, omega3) x 32 t2
+PAR_ROWS = (255, 425)         # 170 destinations: one rank's of 4 at 680 ADOs
+PAR_ON_CARD = 1               # launches are counted on the card only (a CPU
+#                               rehearsal sets 0)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_same(out, label, sharded, unsharded, exact=True, tol=1e-12):
+    """Gate of a sharded run against the same run without a mesh: bit for
+    bit (``exact``), else at ``tol`` relative; every pair of tensors."""
+    worst = 0.0
+    for a, b in zip(sharded, unsharded):
+        if a.shape != b.shape:
+            raise AssertionError(f"[parallel] {label}: shapes "
+                                 f"{tuple(a.shape)} and {tuple(b.shape)}")
+        if exact and not torch.equal(a, b):
+            raise AssertionError(f"[parallel] {label}: the one-rank mesh run "
+                                 "is not bit for bit the unsharded run")
+        d = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+        worst = max(worst, d)
+    if not exact and not worst <= tol:
+        raise AssertionError(f"[parallel] {label}: rel diff {worst:.3e} > "
+                             f"{tol:g}")
+    log(f"[parallel] {label}: mesh vs no mesh "
+        + ("bit for bit" if exact else f"rel {worst:.3e} (tol {tol:g})"))
+    out[label] = {"rel": worst, "bitwise": bool(exact)}
+
+
+def par_counted(fn):
+    """(result, launches by kernel, destination-major launches, s) of a
+    run from zeroed counts."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, read_counts(), batched_launches(), wall
+
+
+def par_coupling(out, label, sol, dtype, tol, B=None):
+    """The coupling kernel with more sources than destinations: the rank's
+    all-gathered stack (nsrc = nado) against PAR_ROWS's destinations, one
+    all-gather then one launch, held to the plain version."""
+    from pyqed_tpu_torch.ops import kernels as kn
+    from pyqed_tpu_torch.parallel.mesh import axis_group, gather_rows
+    group, _, d = axis_group(out["_mesh"])
+    F, nbr, w, OpT = (coupling_operands(sol, dtype) if B is None
+                      else batched_operands(sol, dtype, B))
+    lo, hi = PAR_ROWS
+    nbr_d, w_d = nbr[lo:hi].contiguous(), w[lo:hi].contiguous()
+    plan = kn.heom_coupling_plan(nbr_d, w_d, nsrc=F.shape[0])
+    reset_counts()
+    stack = gather_rows(F, group, d)
+    got = kn.heom_coupling(stack, nbr_d, w_d, OpT, plan=plan)
+    launches = read_counts()["heom_coupling"]
+    if launches != PAR_ON_CARD or tuple(got.shape) != (
+            (hi - lo,) + tuple(F.shape[1:])):
+        raise AssertionError(f"[parallel] {label}: {launches} launches, out "
+                             f"{tuple(got.shape)}")
+    err = check_close(f"nsrc > nd {label} (nsrc {F.shape[0]}, nd {hi - lo})",
+                      got, kn.heom_coupling_ref(stack, nbr_d, w_d, OpT), tol)
+    V = F.shape[-1]
+    edges = int((nbr_d >= 0).sum().item())
+    batch = F.numel() // (F.shape[0] * V)
+    # F counts only the source rows these destinations index (PAR_ROWS
+    # lies in one level, so its sources are the level below it)
+    src_rows = torch.unique(nbr_d[nbr_d >= 0]).numel()
+    nbytes = src_rows * F[0].numel() * F.element_size() + sum(
+        t.numel() * t.element_size() for t in (nbr_d, w_d, OpT, got))
+    b_ms, b_by = bound_ms(nbytes, 8 * V * V * edges * batch)
+    ms = event_ms(lambda: kn.heom_coupling(stack, nbr_d, w_d, OpT,
+                                           plan=plan), ())
+    plain = event_ms(lambda: kn.heom_coupling_ref(stack, nbr_d, w_d, OpT),
+                     (), iters=20, warmup=3)
+    log(f"[parallel] coupling nsrc > nd {label}: {ms:.4f} ms (plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+    out["coupling", label] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  nsrc=F.shape[0], nd=hi - lo,
+                                  src_rows_read=src_rows)
+
+
+def phase_parallel(card):
+    """parallel/ on the card. NCCL will not put two ranks on one card, so
+    this is a world of one: a one-rank NCCL group started by
+    ensure_distributed, a mesh from make_mesh, and every sharded path of
+    the port run at full width (depth cut) with the mesh and without,
+    held together: bit for bit where the arithmetic is the same (HEOM,
+    field 2DES, DMC, FSSH, LDR, PIMC, photon echo, QSATS's walkers), at
+    1e-12 where the pencil KEO splits the FFT (SPO3) or atomics sum in no
+    fixed order (QSATS's local energy, which differs so between two
+    unsharded runs too: recorded), with the kernels' launch counts
+    unchanged. The coupling kernel with more sources than destinations
+    (the sharded right-hand side's) against its plain version."""
+    import torch.distributed as dist
+    from pyqed_tpu_torch import FMO
+    from pyqed_tpu_torch.parallel import (ensure_distributed, make_mesh,
+                                          process_info)
+    from pyqed_tpu_torch.units import au2fs
+    started = ensure_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                 device=DEVICE)
+    mesh = make_mesh({"ado": 1}, devices=DEVICE)
+    out = {"_mesh": mesh, "world": process_info(),
+           "backend": str(dist.get_backend())}
+    log(f"[parallel] ensure_distributed {started}, backend "
+        f"{out['backend']}, process_info {out['world']}, mesh "
+        f"{tuple(mesh.shape)} {mesh.mesh_dim_names}")
+    try:
+        m = FMO()
+        sol = m.heom(**FLAGSHIP, device=DEVICE)
+        for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64,
+                                                       1e-5)):
+            par_coupling(out, f"fmo {str(dtype)[6:]}", sol, dtype, tol)
+        chain = chain_solver()
+        for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64,
+                                                       1e-5)):
+            par_coupling(out, f"chain8 B=256 {str(dtype)[6:]}", chain,
+                         dtype, tol, B=F2D_TIME_B)
+
+        # the FMO flagship: 680 ADOs, 4 launches a step either way
+        rho0, e_ops = m.initial_state(0), m.site_projectors()
+        kw = dict(dt=DT, nt=PAR_HEOM_NT, nout=NOUT, e_ops=e_ops)
+        runs = {}
+        for label, msh in (("mesh", mesh), ("no mesh", None)):
+            sol.run(rho0, **dict(kw, nt=NOUT), mesh=msh)       # warm
+            runs[label] = par_counted(lambda: sol.run(rho0, mesh=msh, **kw))
+        (rs, cs, _, ws), (ru, cu, _, wu) = runs["mesh"], runs["no mesh"]
+        want = {"heom_coupling": 4 * PAR_HEOM_NT * PAR_ON_CARD,
+                "spo_phase": 0, "spo_potential": 0,
+                "liouvillian_commutator": 0}
+        if cs != want or cu != want:
+            raise AssertionError(f"[parallel] HEOM launches {cs} / {cu}, "
+                                 f"expected {want}")
+        par_same(out, "HEOM FMO flagship", (rs.observables, rs.ado),
+                 (ru.observables, ru.ado))
+        out["launches"] = {"heom_coupling": cs["heom_coupling"]}
+        out["heom_steps_per_s"] = {"mesh": PAR_HEOM_NT / ws,
+                                   "no mesh": PAR_HEOM_NT / wu}
+        # what one right-hand side's all-gather of the stack costs: host
+        # enqueue and device time, at a world of one
+        from pyqed_tpu_torch.parallel.mesh import axis_group, gather_rows
+        group = axis_group(mesh)[0]
+        stack = ru.ado.contiguous()
+        out["all_gather_us"] = {
+            "host": 1e3 * host_ms(lambda: gather_rows(stack, group, 1), ()),
+            "events": 1e3 * event_ms(lambda: gather_rows(stack, group, 1),
+                                     ())}
+        log(f"[parallel] one all-gather of the 680 x 49 stack (533 kB): "
+            f"{out['all_gather_us']['host']:.1f} us of host enqueue, "
+            f"{out['all_gather_us']['events']:.1f} us by CUDA events")
+        log(f"[parallel] HEOM flagship {PAR_HEOM_NT} steps "
+            f"({PAR_HEOM_NT * DT * au2fs:.1f} fs): {PAR_HEOM_NT / ws:.1f} "
+            f"steps/s with the mesh, {PAR_HEOM_NT / wu:.1f} without; "
+            f"launches {cs['heom_coupling']} each")
+
+        # SPO3 256^3 x 2: the pencil KEO (two one-rank all-to-alls a step)
+        spo, psi0 = spo3_solver(SPO_N)
+        kw = dict(dt=SPO_DT, nt=PAR_SPO_NT, nout=PAR_SPO_NT // 2,
+                  return_states=False)
+        runs = {}
+        for label, msh in (("mesh", mesh), ("no mesh", None)):
+            spo.mesh = msh
+            spo.run(psi0, **dict(kw, nt=2, nout=1))            # warm
+            runs[label] = par_counted(lambda: spo.run(psi0, **kw))
+        spo.mesh = None
+        (rs, cs, _, ws), (ru, cu, _, wu) = runs["mesh"], runs["no mesh"]
+        want = {"heom_coupling": 0, "spo_phase": PAR_SPO_NT * PAR_ON_CARD,
+                "spo_potential": 2 * PAR_SPO_NT * PAR_ON_CARD,
+                "liouvillian_commutator": 0}
+        if cs != want or cu != want:
+            raise AssertionError(f"[parallel] SPO3 launches {cs} / {cu}, "
+                                 f"expected {want}")
+        par_same(out, "SPO3 256^3 x 2 pencil KEO", (rs.psi, rs.rho_el),
+                 (ru.psi, ru.rho_el), exact=False)
+        out["launches"].update(spo_phase=cs["spo_phase"],
+                               spo_potential=cs["spo_potential"])
+        out["spo_steps_per_s"] = {"mesh": PAR_SPO_NT / ws,
+                                  "no mesh": PAR_SPO_NT / wu}
+        log(f"[parallel] SPO3 {SPO_N}^3 x {SPO_NS}: {PAR_SPO_NT / ws:.1f} "
+            f"steps/s through the pencil KEO, {PAR_SPO_NT / wu:.1f} "
+            f"unsharded; launches {cs}")
+        del spo, psi0, rs, ru, runs
+
+        # the field 2DES at B = 256: the destination-major kernel either way
+        f2, rho0f, mu = f2des_chain()
+        nt_total = f2des_nt_total(F2D_NT1, PAR_F2D_NT3)
+        runs = {}
+        for label, msh in (("mesh", mesh), ("no mesh", None)):
+            from pyqed_tpu_torch.signal.field2des import field_2des_rephasing
+            runs[label] = par_counted(lambda: field_2des_rephasing(
+                f2, rho0f, mu, F2D_DT1 * np.arange(F2D_NT1), t2=F2D_T2,
+                nt3=PAR_F2D_NT3, dt=F2D_DT, pulse_width=F2D_WIDTH,
+                e_amps=(F2D_AMP,) * 3, omega_c=F2D_OMEGA, kernel="cuda",
+                mesh=msh))
+        (rs, cs, bs, ws), (ru, cu, bu, wu) = runs["mesh"], runs["no mesh"]
+        if not (cs["heom_coupling"] == cu["heom_coupling"] == bs == bu
+                == 4 * nt_total * PAR_ON_CARD):
+            raise AssertionError(f"[parallel] field 2DES launches {cs} "
+                                 f"({bs} batched) / {cu} ({bu}), expected "
+                                 f"{4 * nt_total} destination-major")
+        par_same(out, "field 2DES B=256", rs[:1], ru[:1])
+        out["launches"]["heom_coupling_batched"] = bs
+        out["field2des_s"] = {"mesh": ws, "no mesh": wu}
+
+        # the samplers at their phases' widths
+        from pyqed_tpu_torch.grid import fssh as tfs
+        from pyqed_tpu_torch.qmc import DMC, PIMC, QSATS, hcp_lattice
+        dmc = DMC(ndim=3, potential=lambda x: 0.5 * torch.sum(x ** 2))
+        dkw = dict(nwalkers=QMC_DMC["nwalkers"], nsteps=PAR_DMC_NT,
+                   dt=QMC_DMC["dt"], eref=QMC_DMC["eref"], nequil=50,
+                   device=DEVICE)
+        rs = dmc.run(SEED, mesh=mesh, **dkw)
+        ru = dmc.run(SEED, **dkw)
+        par_same(out, "DMC 65,536 walkers", rs[1:], ru[1:])
+        fs = tfs.FSSH(tfs.tully_i(), mass=2000.0, device=DEVICE)
+        x0, p0 = tully_ensemble(NA_NTRAJ)
+        fkw = dict(dt=NA_DT, nt=PAR_FSSH_NT, nout=PAR_FSSH_NT // 2, key=7)
+        rs, ru = fs.run(x0, p0, mesh=mesh, **fkw), fs.run(x0, p0, **fkw)
+        par_same(out, "FSSH 20,000 trajectories",
+                 (rs.x, rs.p, rs.c, rs.population),
+                 (ru.x, ru.p, ru.c, ru.population))
+        ldr, S, lpsi0 = ldr_model(LDR_LEVELS[0], DEVICE)
+        ldr.build_ovlp(S)
+        lkw = dict(dt=LDR_DT, nt=PAR_LDR_NT, nout=LDR_NOUT, method="dense")
+        rs, ru = ldr.run(lpsi0, mesh=mesh, **lkw), ldr.run(lpsi0, **lkw)
+        par_same(out, "LDR level 5 dense", (rs.states,), (ru.states,))
+        pimc = PIMC(lambda q: 0.5 * torch.sum(q ** 2), **QMC_PIMC_SYS)
+        rs = pimc.run(SEED, mesh=mesh, device=DEVICE, **PAR_PIMC)
+        ts = pimc.trace_
+        ru = pimc.run(SEED, device=DEVICE, **PAR_PIMC)
+        par_same(out, "PIMC 2048 paths", (rs[3],) + tuple(ts),
+                 (ru[3],) + tuple(pimc.trace_))
+        sites, box = hcp_lattice(QMC_QS_CELLS, QMC_DENSITY)
+        qs = QSATS(sites, box, a=0.06, b=5.0, device=DEVICE)
+        qkw = dict(nwalkers=QMC_QS_NW, nsweeps=PAR_QS_SWEEPS, nequil=1,
+                   step=0.5, exchange_prob=0.2)
+        rs, ru = qs.run(SEED, mesh=mesh, **qkw), qs.run(SEED, **qkw)
+        # the walkers bit for bit; the local energy sums with index_add_
+        # (atomics, in no fixed order on the card), so the energies agree
+        # to rounding, as two unsharded runs do
+        par_same(out, "QSATS hcp 180 atoms x 512 walkers",
+                 [torch.as_tensor(rs["walkers"])],
+                 [torch.as_tensor(ru["walkers"])])
+        par_same(out, "QSATS hcp 180 atoms x 512 walkers, energies",
+                 [torch.as_tensor(rs["e_trace"])],
+                 [torch.as_tensor(ru["e_trace"])], exact=False)
+        # a record, not a gate: more unsharded runs of the same draws
+        # against the first, which differ where the atomics' order does
+        twice = []
+        for _ in range(PAR_QS_REPEATS):
+            r2 = qs.run(SEED, **qkw)
+            twice.append({k: (bool(np.array_equal(r2[k], ru[k])),
+                              float(np.abs(r2[k] - ru[k]).max()
+                                    / np.abs(ru[k]).max()))
+                          for k in ("e_trace", "walkers")})
+        out["QSATS unsharded repeats"] = twice
+        log(f"[parallel] QSATS {PAR_QS_REPEATS} more unsharded runs of the "
+            "same draws against the first, (bit for bit, rel): "
+            + "; ".join(f"e_trace {t['e_trace']}, walkers {t['walkers']}"
+                        for t in twice))
+        from pyqed_tpu_torch.signal import sos
+        w = np.linspace(0.7, 1.45, PAR_PE[0])
+        t2s = np.linspace(0.0, 30.0, PAR_PE[1])
+        rs = sos.photon_echo_t2series(dimer_mol(), w, w, t2s, mesh=mesh,
+                                      device=DEVICE, **DIMER_IDX)
+        ru = sos.photon_echo_t2series(dimer_mol(), w, w, t2s, device=DEVICE,
+                                      **DIMER_IDX)
+        par_same(out, "photon echo series 256^2 x 32", (rs,), (ru,))
+    finally:
+        dist.destroy_process_group()
+    del out["_mesh"]
+    return {(k if isinstance(k, str) else " ".join(k)): v
+            for k, v in out.items()}
+
+
 def clocked(fn, *args):
     """``fn(*args)``, its seconds logged and kept in :data:`PHASE_S`."""
     t0 = time.perf_counter()
@@ -6162,6 +6461,7 @@ def main():
     slices["negf"] = clocked(phase_negf, card)
     slices["qmc"] = clocked(phase_qmc, card)
     slices["beam"] = clocked(phase_beam, card)
+    slices["parallel"] = clocked(phase_parallel, card)
     times = clocked(phase_timing, card, shapes)
     spo_times = clocked(phase_spo_timing, card, spo_sol, spo_psi0)
     del spo_sol, spo_psi0
@@ -6185,6 +6485,10 @@ def main():
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
+        "sharded": {
+            "launches_one_rank_mesh": slices["parallel"]["launches"][
+                "heom_coupling"],
+            "nsrc_gt_nd": slices["parallel"]["coupling fmo complex128"]},
     }]
     for kind, replaces in (("phase", "pyqed_tpu/ops/pallas_kernels.py:267"),
                            ("potential",
@@ -6196,6 +6500,8 @@ def main():
             "source": "pyqed_tpu_torch/csrc/spo.cu",
             "replaces": replaces,
             "launches": spo_counts[f"spo_{kind}"],
+            "launches_one_rank_mesh": slices["parallel"]["launches"][
+                f"spo_{kind}"],
             "max_abs_err": spo_errs[(kind, (SPO_N,) * 3, True,
                                      torch.complex128)],
             "ms": t["ms"],
@@ -6248,6 +6554,11 @@ def main():
         "batch_min": {str(k)[6:]: v
                       for k, v in kn.COUPLING_BATCH_MIN.items()},
         "ms_by_batch": f2d_time["by_batch"],
+        "sharded": {
+            "launches_one_rank_mesh": slices["parallel"]["launches"][
+                "heom_coupling_batched"],
+            "nsrc_gt_nd": slices["parallel"][
+                "coupling chain8 B=256 complex128"]},
     })
     n_big = 2 * LB_BIG_NVIB
     t = lb_times[(n_big, torch.complex128)]

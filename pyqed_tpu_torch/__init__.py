@@ -106,6 +106,15 @@ Ported so far:
   loops of ``torch.fft`` (cuFFT) steps that write into preallocated
   stacks. matplotlib is imported only when something is drawn.
 
+- ``parallel``: device meshes (``make_mesh`` over a ``torch.distributed``
+  process group: NCCL on the card, gloo on the CPU), the distributed
+  runtime (``ensure_distributed`` from the ``PYQED_*`` variables) and the
+  pencil FFT (``fft_sharded``, ``make_keo_pencil``; ``all_to_all_single``
+  transposes). Every ``mesh=`` argument takes such a mesh: HEOM, the
+  field 2DES and SPO run their hand-written kernels on each rank's shard;
+  LDR, FSSH, the photon-echo series, DMC, PIMC and QSATS shard their
+  rows, trajectories, frequencies or walkers.
+
 The package surface mirrors ``pyqed_tpu``'s for every ported module
 (``tests/test_torch_surface.py``); ``use_x64``/``x64_enabled`` are
 accepted and change nothing, since torch always has float64.
@@ -169,6 +178,7 @@ from .ops.operators import (
 )
 from .ops.expm import chebyshev_expm_multiply
 from . import beam
+from . import parallel
 from .utils.style import (
     set_style, subplots, curve, matplot, imshow, level_scheme,
     two_scales, surf, plot_surface, plot_surfaces, export, read_result,

@@ -15,6 +15,14 @@
 // signal/field2des.py propagates them), out[d, b] = sum_j w[d, j]
 // F[nbr[d, j], b] @ OpT[j] for every b, in one launch,
 //
+// The sources F and the destinations out need not be the same ADOs: F
+// is a stack of nsrc rows, (nsrc, V) or (nsrc, B, V), that nbr indexes,
+// and out holds the nd destinations of nbr's rows, (nd, V) or (nd, B, V).
+// A whole hierarchy has nsrc = nd = nado; a sharded run passes the stack
+// it all-gathered and its own destinations (nsrc > nd). Neither design
+// needs nsrc: a source is only ever an index into F. Below, nado in a
+// shape is nd for out and nsrc for F.
+//
 // with OpT = [P_0^T .. P_{M-1}^T ; D_0^T .. D_{M-1}^T] (nj = 2M complex
 // (V, V) superoperators, c_k folded into D_k), nbr[d, j] the plus (j < M)
 // or minus (j >= M) neighbour of d or -1 when there is none, and w = 1 on
@@ -318,7 +326,7 @@ struct PlanArgs {
   const void* w;      // (nedges,) real of F's precision: the edges' weights
   void* plan;         // the plan's int32 arrays, one after another
   void* partial;      // (nedges, B, V) interleaved complex: the partials
-  int nado;
+  int nd;             // destinations (rows of out; F may have more rows)
   int ntiles;
   int nedges;
   int V;
@@ -328,7 +336,7 @@ struct PlanArgs {
 template <typename T>
 int launch(const void* F, const void* OpT, void* out, const PlanArgs* a,
            void* stream) {
-  if (a == nullptr || a->nado <= 0 || a->ntiles <= 0 || a->nedges <= 0 ||
+  if (a == nullptr || a->nd <= 0 || a->ntiles <= 0 || a->nedges <= 0 ||
       a->V <= 0 || a->B <= 0 ||
       static_cast<long long>(a->B) * a->V > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -346,7 +354,7 @@ int launch(const void* F, const void* OpT, void* out, const PlanArgs* a,
   int* const dst = src + a->nedges;
   int* const slot = dst + a->nedges;
   int* const dst_ptr = slot + a->nedges;
-  int* const arrived = dst_ptr + a->nado + 1;
+  int* const arrived = dst_ptr + a->nd + 1;
   const dim3 grid(a->ntiles, (V + kCols - 1) / kCols);
   coupling_kernel<T><<<grid, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -362,9 +370,9 @@ int launch(const void* F, const void* OpT, void* out, const PlanArgs* a,
 // calls, built once per plan, V and B by ops/kernels.py (a ctypes
 // Structure with these fields in this order).
 struct BatchArgs {
-  const void* nbr;    // (nado, nj) int32: d's neighbours, -1 for none
-  const void* w;      // (nado, nj) real of F's precision: their weights
-  int nado;
+  const void* nbr;    // (nd, nj) int32: d's sources in F, -1 for none
+  const void* w;      // (nd, nj) real of F's precision: their weights
+  int nd;             // destinations (rows of out; F may have more rows)
   int nj;
   int V;
   int B;              // hierarchies in the batch
@@ -692,7 +700,7 @@ int launch_batched(const void* F, const void* OpT, void* out,
   using C = typename Complex<T>::type;
   constexpr bool f64 = sizeof(T) == 8;
   constexpr int rows = f64 ? kDBt : kFTile;
-  if (a == nullptr || a->nado <= 0 || a->nj <= 0 || a->V <= 0 ||
+  if (a == nullptr || a->nd <= 0 || a->nj <= 0 || a->V <= 0 ||
       a->B <= 0 || (a->B + rows - 1) / rows > 65535 ||
       (a->V + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -706,7 +714,7 @@ int launch_batched(const void* F, const void* OpT, void* out,
   static pyqed::SmemAllowance allowance;
   const cudaError_t err = allowance.ensure(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a->nado, (a->V + 63) / 64, (a->B + rows - 1) / rows);
+  const dim3 grid(a->nd, (a->V + 63) / 64, (a->B + rows - 1) / rows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (f64)
     coupling_dm_dmma_kernel<<<grid, kDThreads, smem, s>>>(
@@ -724,14 +732,15 @@ int launch_batched(const void* F, const void* OpT, void* out,
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Pointers are device pointers,
-// but for args, which points to a PlanArgs in host memory. F (nado, B, V),
-// OpT (nj, V, V), out (nado, B, V) and args->partial (nedges, B, V) are
-// interleaved complex (B = args->B; (nado, V) when it is 1). args->plan holds the int32 arrays of
+// but for args, which points to a PlanArgs in host memory. F (nsrc, B, V),
+// OpT (nj, V, V), out (nd, B, V) and args->partial (nedges, B, V) are
+// interleaved complex (B = args->B; (nsrc, V) and (nd, V) when it is 1;
+// src indexes F's rows, dst out's). args->plan holds the int32 arrays of
 // ops/kernels.py::CouplingPlan one after another: tiles (ntiles, 3) rows
 // (j, first edge, edge count); src, dst and slot (nedges,) of the edges
-// sorted by j, slot being the edge's row of partial; dst_ptr (nado + 1,),
+// sorted by j, slot being the edge's row of partial; dst_ptr (nd + 1,),
 // destination d's partials being the rows dst_ptr[d] .. dst_ptr[d + 1] - 1;
-// arrived (nado,), zero before and after the call. Every destination must
+// arrived (nd,), zero before and after the call. Every destination must
 // have an edge (the wrapper zeroes the others). Returns the cudaError_t of
 // the set-up and the launch (0: launched).
 extern "C" int heom_coupling_c128(const void* F, const void* OpT, void* out,
@@ -746,7 +755,7 @@ extern "C" int heom_coupling_c64(const void* F, const void* OpT, void* out,
                        stream);
 }
 
-// F (nado, B, V), OpT (nj, V, V) and out (nado, B, V) interleaved complex,
+// F (nsrc, B, V), OpT (nj, V, V) and out (nd, B, V) interleaved complex,
 // device pointers; args points to a BatchArgs in host memory, whose nbr
 // and w are device pointers. Every element of out is written (zeros for a
 // destination without edges). Returns the cudaError_t of the set-up and

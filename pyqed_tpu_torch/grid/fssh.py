@@ -47,10 +47,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..config import not_yet_ported, resolve_device
+from ..config import resolve_device
 from ..core.dynamics import cuda_graph_stepper
 from ..core.result import Result
 from ..ops.linalg import as_tensor
+from ..parallel.mesh import check_mesh
 from .spo import _eigh
 
 
@@ -292,23 +293,52 @@ class FSSH:
         Result carries ``x``/``p``/``c``/``active`` (nsnap, ntraj, ...),
         ``population`` (surface estimator, (nsnap, ns)),
         ``population_wf`` (|c|^2 estimator) and ``energy`` (nsnap, ntraj),
-        on the solver's device. ``mesh`` is not yet ported (raises)."""
-        if mesh is not None:
-            raise not_yet_ported("FSSH.run(mesh=...)")
+        on the solver's device.
+
+        ``mesh`` (a DeviceMesh): the trajectories are cut over its first
+        axis (chunks of ceil(ntraj / d)); every rank makes the whole draw
+        table from ``key`` and keeps its columns, so the sharded run equals
+        the unsharded one draw for draw. The snapshots are gathered once
+        at the end, and every rank returns the whole result."""
         state = self.initial_state(x0, p0, active0, c0)
         nsteps = (nt // nout) * nout
         return self.trajectories(state, self.draws(key, nsteps,
                                                    state[0].shape[0]),
-                                 dt, nt, nout)
+                                 dt, nt, nout, mesh=mesh)
 
-    def trajectories(self, state, r, dt, nt, nout) -> Result:
+    def _estimators(self, res):
+        """The surface and |c|² population estimators of ``res`` from its
+        snapshots of the active surfaces and amplitudes."""
+        res.population = torch.nn.functional.one_hot(
+            res.active, self.nstates).to(torch.float64).mean(dim=1)
+        pc = res.c.abs() ** 2
+        res.population_wf = (pc / pc.sum(-1, keepdim=True)).mean(dim=1)
+
+    def trajectories(self, state, r, dt, nt, nout, mesh=None) -> Result:
         """Advance ``state`` (:meth:`initial_state`) with the uniform
         draws ``r`` (nsteps, ntraj), any device: row i is step i's.
         Each window's draws are moved to the solver's device when the
         window starts. On CUDA, for two states and a real V, the step
         runs as one CUDA graph
         (:func:`~pyqed_tpu_torch.core.dynamics.cuda_graph_stepper`);
-        otherwise its ``eigh`` calls read the host and it runs eagerly."""
+        otherwise its ``eigh`` calls read the host and it runs eagerly.
+        With ``mesh`` every rank passes the whole state and draws and
+        advances its chunk of the trajectories (:meth:`run`)."""
+        mesh = check_mesh(mesh)
+        if mesh is not None:
+            from torch.utils import _pytree as pytree
+            from ..parallel.mesh import axis_group, gather_rows, local_range
+            group, rank, d = axis_group(mesh)
+            ntraj = state[0].shape[0]
+            lo, hi, _ = local_range(ntraj, rank, d)
+            res = self.trajectories(
+                pytree.tree_map(lambda t: t[lo:hi], state), r[:, lo:hi], dt,
+                nt, nout)
+            for name in ("x", "p", "c", "active", "energy"):
+                setattr(res, name, gather_rows(getattr(res, name), group, d,
+                                               n=ntraj, dim=1))
+            self._estimators(res)
+            return res
         nwin = nt // nout
         if r.shape[0] < nwin * nout:
             raise ValueError(f"{r.shape[0]} rows of draws for "
@@ -339,11 +369,8 @@ class FSSH:
         res.times = torch.arange(1, nwin + 1, dtype=torch.float64,
                                  device=dev) * dt * nout
         res.x, res.p, res.c, res.active = xs, ps, cs, acts
-        res.population = torch.nn.functional.one_hot(
-            acts, ns).to(torch.float64).mean(dim=1)
-        pc = cs.abs() ** 2
-        res.population_wf = (pc / pc.sum(-1, keepdim=True)).mean(dim=1)
         res.energy = es
+        self._estimators(res)
         return res
 
 

@@ -42,9 +42,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..config import complex_dtype_for, not_yet_ported, resolve_device
+from ..config import complex_dtype_for, resolve_device
 from ..core.diagnostics import load_checkpoint, save_checkpoint
 from ..core.result import Result
+from ..parallel.mesh import check_mesh
 from .dvr import HermiteDVR, SineDVR
 from .spo import _host, _tensor
 
@@ -81,17 +82,16 @@ class LDRN:
     ``device``: the card when None (raises without one), ``"cpu"`` on
     request; the grids, surfaces, overlap factor and propagators live
     there. ``precision`` is accepted for the JAX signature and changes
-    nothing. ``mesh`` is not yet ported (raises).
+    nothing. ``mesh``: a :class:`~torch.distributed.device_mesh.DeviceMesh`
+    that :meth:`run` shards the state's rows over (None: unsharded).
     """
 
     def __init__(self, domains, levels, ndim=None, nstates=2, x0=None,
                  mass=None, dvr_type="sine", mesh=None, precision=None,
                  device=None):
-        if mesh is not None:
-            raise not_yet_ported("LDRN(mesh=...)")
         self.device = resolve_device(device)
         self.precision = precision
-        self.mesh = None
+        self.mesh = check_mesh(mesh)
         if ndim is None:
             ndim = len(domains)
         assert len(domains) == len(levels) == ndim
@@ -388,10 +388,18 @@ class LDRN:
         trailing half-step potential phase, as in the JAX package.
         ``checkpoint=`` (a path) saves the state every
         ``checkpoint_every`` windows and at the end in the JAX package's
-        npz format; ``resume=`` continues from such a file. ``mesh`` is not
-        yet ported (raises)."""
-        if mesh is not None:
-            raise not_yet_ported("LDRN.run(mesh=...)")
+        npz format; ``resume=`` continues from such a file.
+
+        ``mesh`` (or the solver's): the rows of the state vector (ntot·ns,
+        grid-major) are cut over the mesh's first axis, in chunks of
+        ceil(n / d). Dense: each rank holds its rows of ψ and of U, and a
+        step is one all-gather of ψ and a local ZGEMV. Factored and
+        separable: a step gathers ψ and applies the kinetic factor to the
+        whole vector, keeping the rank's rows (they shard the state and
+        the potential phases, not the kinetic work). The states are
+        gathered at the output windows; every rank returns the whole
+        result, and rank 0 writes the checkpoints."""
+        mesh = self.mesh if mesh is None else check_mesh(mesh)
         if method not in ("auto", "dense", "factored"):
             raise ValueError(f"method {method!r}")
         psi0 = _on(psi0, self.device)
@@ -443,14 +451,49 @@ class LDRN:
         states = torch.empty((nrun, psi.shape[0]), dtype=cdtype,
                              device=self.device)
         every = max(1, int(checkpoint_every))
+        whole = lambda p: p                 # noqa: E731
+        write = save_checkpoint
+        if mesh is not None:
+            from ..parallel.mesh import (axis_group, gather_rows, local_range,
+                                         rank0_write)
+            group, rank, d = axis_group(mesh)
+            n = psi.shape[0]
+            lo, hi, _ = local_range(n, rank, d)
+            expV = expV[lo:hi]
+
+            def whole(p):
+                return gather_rows(p, group, d, n=n)
+
+            if U is not None and not use_fact:
+                U_own = U[lo:hi]
+
+                def kin(p):
+                    return torch.mv(U_own, p)
+            else:
+                kin_all = kin
+
+                def kin(p):
+                    return kin_all(p)[lo:hi]
+
+            def step_fn(p):
+                return expV * kin(whole(p))
+
+            def write(*a, **k):
+                rank0_write(group, lambda: save_checkpoint(*a, **k))
+
+            psi = psi[lo:hi]
+        else:
+            def step_fn(p):
+                return expV * kin(p)
         for i in range(nrun):
             for _ in range(nout):
-                psi = expV * kin(psi)
-            states[i] = psi
+                psi = step_fn(psi)
+            states[i] = whole(psi)
             if checkpoint is not None and ((i + 1) % every == 0
                                            or i + 1 == nrun):
-                save_checkpoint(checkpoint, start + i + 1, [psi], dt=dt,
-                                nout=nout)
+                write(checkpoint, start + i + 1, [states[i]], dt=dt,
+                      nout=nout)
+        psi = states[nrun - 1] if nrun else whole(psi)
         r = ResultLDR(dx=self.dx, dt=dt, nt=nt, nout=nout, psi0=psi0)
         r.times = t0 + (start + torch.arange(
             1, nrun + 1, dtype=torch.float64, device=self.device)) * dt * nout
@@ -771,8 +814,7 @@ class LDR2Jacobi(LDRN):
         if self.A is not None:
             return super().run(psi0, dt, nt, nout=nout, t0=t0, mesh=mesh,
                                method=method)
-        if mesh is not None:
-            raise not_yet_ported("LDR2Jacobi.run(mesh=...)")
+        mesh = self.mesh if mesh is None else check_mesh(mesh)
         psi0 = _on(psi0, self.device)
         assert tuple(psi0.shape) == (*self.nx, self.nstates)
         self.buildV(dt)
@@ -784,11 +826,24 @@ class LDR2Jacobi(LDRN):
         psi = psi0.to(cdtype) * self.exp_V_half.to(cdtype)
         states = torch.empty((nwin,) + tuple(psi.shape), dtype=cdtype,
                              device=self.device)
+        whole = lambda p: p                 # noqa: E731
+        if mesh is not None:
+            # x rows over the mesh: the rotor factor is local to a row, the
+            # radial one mixes rows after one all-gather of the rotated rows
+            from ..parallel.mesh import axis_group, gather_rows, local_range
+            group, rank, d = axis_group(mesh)
+            nx = psi.shape[0]
+            lo, hi, _ = local_range(nx, rank, d)
+            expV, Ux, Uy, psi = expV[lo:hi], Ux[lo:hi], Uy[lo:hi], psi[lo:hi]
+
+            def whole(p):
+                return gather_rows(p, group, d, n=nx)
         for w in range(nwin):
             for _ in range(nout):
-                q = torch.bmm(Uy, psi)                      # x: (a,b)(b,s)
+                q = whole(torch.bmm(Uy, psi))               # x: (a,b)(b,s)
                 psi = expV * torch.tensordot(Ux, q, dims=1)
-            states[w] = psi
+            states[w] = whole(psi)
+        psi = states[nwin - 1] if nwin else whole(psi)
         r = ResultLDR(dx=self.dx, dt=dt, nt=nt, nout=nout, psi0=psi0)
         r.times = t0 + torch.arange(1, nwin + 1, dtype=torch.float64,
                                     device=self.device) * dt * nout

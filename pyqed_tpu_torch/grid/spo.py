@@ -35,11 +35,12 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import complex_dtype_for, not_yet_ported, resolve_device
+from ..config import complex_dtype_for, resolve_device
 from ..core.diagnostics import load_checkpoint, save_checkpoint
 from ..core.result import Result
 from ..ops import kernels as kn
 from ..ops.math import interval
+from ..parallel.mesh import check_mesh
 
 KERNELS = ("cuda", "xla", "dft")
 
@@ -168,14 +169,21 @@ class SPON:
         potential propagator is then a batched matrix exponential.
     device : the card (``cuda``) when None, which raises without one;
         ``"cpu"`` on request.
-    mesh : not yet ported (raises).
+    mesh : a :class:`~torch.distributed.device_mesh.DeviceMesh` whose
+        first axis shards the first grid axis in :meth:`run`: each rank
+        steps its slab, the potential kernel on its slab of expV and the
+        kinetic step through the pencil FFT
+        (:func:`~pyqed_tpu_torch.parallel.make_keo_pencil`, the phase
+        kernel on the rank's slab of expK; Jacobi coordinates through
+        :func:`~pyqed_tpu_torch.parallel.make_keo_factors_pencil`), at
+        any number of ranks, one included. A grid that does not divide
+        raises.
     """
 
     def __init__(self, grids: Sequence, masses=None, nstates: int = 2,
                  abc: bool = False, kernel=None, mesh=None,
                  nonherm: bool = False, device=None):
-        if mesh is not None:
-            raise not_yet_ported("SPON(mesh=...)")
+        self.mesh = check_mesh(mesh)
         self.kernel = _kernel_name(kernel)
         self.device = resolve_device(device)
         self.nonherm = nonherm
@@ -346,8 +354,9 @@ class SPON:
             psik = psik * self._exp_K[..., None]
         return torch.fft.ifftn(psik, dim=axes)
 
-    def _peo(self, psi, half=False):
-        M = self._exp_V_half if half else self._exp_V
+    def _peo(self, psi, half=False, M=None):
+        if M is None:
+            M = self._exp_V_half if half else self._exp_V
         if self._use_kernels():
             return kn.spo_potential_apply(M, psi)
         return torch.einsum("...ab, ...b -> ...a", M, psi)
@@ -414,36 +423,43 @@ class SPON:
                     f"requested nt//nout = {nwin}")
             psi0 = psi_r.to(dev, dtype)
 
-        if self._step_mat is not None:
-            # compose the nout fine steps once: M^nout by squaring
-            Mk = torch.linalg.matrix_power(self._step_mat, nout)
-
-            def advance(psi):
-                return (Mk @ psi.reshape(-1)).reshape(psi.shape)
+        rho0 = observe(psi0)
+        if self.mesh is not None:
+            psi, advance, observe, whole, write = self._sharded(psi0, nout,
+                                                                 observe)
         else:
-            def advance(psi):
-                for _ in range(nout):
-                    psi = self.step(psi)
-                return psi
+            psi, whole, write = psi0, (lambda p: p), (lambda fn: fn())
+            if self._step_mat is not None:
+                # compose the nout fine steps once: M^nout by squaring
+                Mk = torch.linalg.matrix_power(self._step_mat, nout)
+
+                def advance(psi):
+                    return (Mk @ psi.reshape(-1)).reshape(psi.shape)
+            else:
+                def advance(psi):
+                    for _ in range(nout):
+                        psi = self.step(psi)
+                    return psi
 
         nrun = nwin - start_window
         rho_el = torch.empty((nrun + 1, ns, ns), dtype=dtype, device=dev)
-        rho_el[0] = observe(psi0)
+        rho_el[0] = rho0
         states = None
         if return_states:
             states = torch.empty((nrun + 1,) + tuple(psi0.shape),
                                  dtype=dtype, device=dev)
             states[0] = psi0
         every = max(1, int(checkpoint_every))
-        psi = psi0
         for i in range(1, nrun + 1):
             psi = advance(psi)
             rho_el[i] = observe(psi)
+            full = None
             if states is not None:
-                states[i] = psi
+                full = states[i] = whole(psi)
             if checkpoint is not None and (i % every == 0 or i == nrun):
-                save_checkpoint(checkpoint, start_window + i, [psi], dt=dt,
-                                nout=nout)
+                full = whole(psi) if full is None else full
+                write(lambda: save_checkpoint(checkpoint, start_window + i,
+                                              [full], dt=dt, nout=nout))
 
         r = ResultSPO(grids=self.grids, dt=dt, nt=nt, psi0=psi0, nout=nout)
         r.times = t0 + (start_window + torch.arange(
@@ -451,8 +467,48 @@ class SPON:
         r.rho_el = rho_el
         r.population = rho_el.diagonal(dim1=-2, dim2=-1).real
         r.states = states
-        r.psi = psi
+        r.psi = whole(psi)
         return r
+
+    def _keo_sharded(self):
+        """The pencil KEO of the mesh for this solver's grid and factors."""
+        from ..parallel.pencil_fft import (make_keo_factors_pencil,
+                                           make_keo_pencil)
+        if getattr(self, "coords", "linear") == "linear":
+            return make_keo_pencil(self.shape, self.nstates, self._exp_K,
+                                   self.mesh, kernel=self._use_kernels())
+        return make_keo_factors_pencil(self.shape, self.nstates,
+                                       self._jacobi_factors(), self.mesh)
+
+    def _sharded(self, psi0, nout, observe):
+        """:meth:`run`'s hooks with the first grid axis cut over the mesh's
+        first axis: every rank steps rows [r·n0/d, (r+1)·n0/d) of psi.
+        Returns (the rank's rows of psi0, advance, observe, whole, write):
+        the electronic density matrix is one all-reduce and the state one
+        all-gather per output window; rank 0 writes the checkpoints."""
+        from ..parallel.mesh import (all_reduce_sum, axis_group, gather_rows,
+                                     rank0_write)
+        if self._step_mat is not None:
+            raise ValueError("kernel='dft' folds the 1-D step into one dense "
+                             "matrix, which does not shard; use kernel='cuda'"
+                             " or 'xla' with a mesh")
+        group, rank, d = axis_group(self.mesh)
+        keo = self._keo_sharded()       # raises where the grid does not divide
+        rows = self.shape[0] // d
+        own = slice(rank * rows, (rank + 1) * rows)
+        Vh = self._exp_V_half[own].contiguous()
+
+        def advance(psi):
+            for _ in range(nout):
+                psi = self._peo(psi, M=Vh)
+                psi = keo(psi)
+                psi = self._peo(psi, M=Vh)
+            return psi
+
+        return (psi0[own].contiguous(), advance,
+                lambda psi: all_reduce_sum(observe(psi), group),
+                lambda psi: gather_rows(psi, group, d),
+                lambda fn: rank0_write(group, fn))
 
     # ----------------------------------------------------------- observables
     def population(self, psi, representation="diabatic"):
@@ -571,6 +627,11 @@ class SPO2(SPON):
                 np.outer(Iinv, ky ** 2 / 2.0), device=dev) * dt).to(dtype)
         return self
 
+    def _jacobi_factors(self):
+        """(axis, phase) factors of the Jacobi KEO, for the mesh's pencil
+        KEO."""
+        return [(0, self._exp_Kx), (1, self._exp_Ky)]
+
     def _keo(self, psi):
         if self.coords == "linear":
             return super()._keo(psi)
@@ -645,6 +706,11 @@ class SPO3(SPON):
             self._exp_Ky = phase(ky ** 2 / (2 * mu2))
             self._exp_Kz = phase(binv[:, :, None] * (kz ** 2)[None, None, :])
         return self
+
+    def _jacobi_factors(self):
+        """(axis, phase) factors of the Jacobi KEO, for the mesh's pencil
+        KEO."""
+        return [(0, self._exp_Kx), (1, self._exp_Ky), (2, self._exp_Kz)]
 
     def _keo(self, psi):
         if self.coords == "linear":

@@ -30,6 +30,7 @@ from ..core.diagnostics import load_checkpoint, save_checkpoint
 from ..core.dynamics import rk4_step
 from ..core.result import Result
 from ..ops import kernels as kn
+from ..parallel.mesh import check_mesh
 from .bath import DrudeBath
 
 KERNELS = ("einsum", "matmul", "levels", "rowcol", "cuda")
@@ -43,16 +44,24 @@ def _numpy(a):
 
 
 def _kernel_name(kernel):
-    """Validate a kernel name; ``pallas`` is an alias of ``cuda``."""
+    """Validate a kernel name; ``pallas`` is an alias of ``cuda``, and
+    ``levels-fast`` runs as ``levels``: the JAX package's reduced-precision
+    levels form (``Precision.DEFAULT``, which on its CPU in float64 gives
+    the numbers of ``levels``) has no reduced FP64 mode to take on an
+    H100, and at complex64 the port keeps FP32 (no TF32). ``matmul-fast``
+    is no JAX kernel (JAX lets unknown names fall through to its einsum
+    form) and stays refused."""
     if kernel is None:
         return None
     if kernel == "pallas":
         return "cuda"
+    if kernel == "levels-fast":
+        return "levels"
     if kernel.endswith("-fast"):
         raise not_yet_ported(f"kernel={kernel!r} (reduced precision)")
     if kernel not in KERNELS:
         raise ValueError(f"unknown HEOM kernel {kernel!r}; expected one of "
-                         f"{KERNELS} or 'pallas'")
+                         f"{KERNELS}, 'pallas' or 'levels-fast'")
     return kernel
 
 
@@ -106,13 +115,17 @@ class HEOMSolver:
         'pade' with ``nexp`` terms), or a list of (Q, c, nu) tuples or
         (Q, DrudeBath) pairs.
     lmax : hierarchy depth (max total occupation).
-    kernel : right-hand side, one of ``einsum``, ``matmul``, ``levels``,
-        ``rowcol`` (site-projector couplings only) or ``cuda`` (the
-        hand-written coupling kernel; ``pallas`` is an alias). None picks
-        ``cuda`` on a CUDA device and ``einsum`` on the CPU. Complex bath
+    kernel : right-hand side, one of ``einsum``, ``matmul``, ``levels``
+        (``levels-fast`` is the same), ``rowcol`` (site-projector
+        couplings only) or ``cuda`` (the hand-written coupling kernel;
+        ``pallas`` is an alias). None picks ``cuda`` on a CUDA device and
+        ``einsum`` on the CPU. Complex bath
         rates (underdamped or Prony baths) run through the kernel too: the
         damping is applied outside it, in full (the JAX package routes its
         level kernel to ``matmul`` there, a TPU limitation).
+    mesh : a :class:`~torch.distributed.device_mesh.DeviceMesh` (from
+        :func:`pyqed_tpu_torch.parallel.make_mesh`) whose first axis
+        shards the ADO axis in :meth:`run` (None: unsharded).
     device : where the hierarchy lives; the card (``cuda``) when None,
         which raises without one. Pass ``"cpu"`` to run on the CPU.
     """
@@ -120,8 +133,7 @@ class HEOMSolver:
     def __init__(self, H, bath=None, c_ops=None, e_ops=None, lmax: int = 4,
                  decomposition="matsubara", nexp: int = 1, kernel=None,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise not_yet_ported("HEOMSolver(mesh=...)")
+        self.mesh = check_mesh(mesh)
         self.device = resolve_device(device)
         self._H_np = _numpy(H)
         self.H = torch.as_tensor(self._H_np, device=self.device)
@@ -180,7 +192,7 @@ class HEOMSolver:
               else nus.real.astype(rdtype))
         return keys, plus_idx, minus_idx, Q, c, nu
 
-    def rhs_fn(self, dtype, kernel=None, edip=None):
+    def rhs_fn(self, dtype, kernel=None, edip=None, rows=None, nsrc=None):
         """The hierarchy RHS ``ados (nado, n, n) -> d ados/dt`` and nado.
         Every kernel's closure also takes a batch of hierarchies, ados
         (nado, B, n, n), the ADO axis outermost (``cuda``: one launch of
@@ -192,27 +204,40 @@ class HEOMSolver:
         ``E`` (a Python float) adds the drive −i E [μ, ρ] to every ADO,
         the H + E(t) μ of the JAX package (pyqed_tpu/open/heom.py:416-426),
         for every kernel as one more product of the ADO stack with the
-        drive's (n², n²) superoperator."""
+        drive's (n², n²) superoperator.
+
+        ``rows`` = (lo, hi) and ``nsrc``: the closure takes a stack of
+        ``nsrc`` ADOs (default nado) and returns the destination rows
+        [lo, hi) (default all) of the right-hand side, rows past nado
+        zero: a sharded run's rank calls it on its all-gathered stack for
+        its own ADOs (every kernel; ``cuda`` launches once a call on those
+        destinations' edges)."""
         kernel = _kernel_name(kernel) or self.kernel
         keys, plus_idx, minus_idx, Q, c, nu = self._build(dtype)
         nado = keys.shape[0]
+        lo, hi, nsrc = kn.rhs_rows(nado, rows, nsrc)
+        sub = dict(rows=(lo, hi), nsrc=nsrc)
         dev = self.device
         if kernel is None:
             kernel = "cuda" if dev.type == "cuda" else "einsum"
         args = (self._H_np, Q, c, nu, keys, plus_idx, minus_idx)
+        damp = kn.damp_tensor(kn.dest_rows(keys @ nu, (lo, hi), 0), dtype,
+                              dev)
         if kernel == "cuda":
-            rhs = kn.heom_rhs_coupling_factory(*args, dtype=dtype, device=dev)
+            rhs = kn.heom_rhs_coupling_factory(*args, dtype=dtype, device=dev,
+                                               **sub)
         elif kernel == "levels":
             rhs = kn.heom_rhs_levels_xla_factory(*args, dtype=dtype,
-                                                 device=dev)
+                                                 device=dev, **sub)
         elif kernel == "rowcol":
-            rhs = kn.heom_rhs_rowcol_factory(*args, dtype=dtype, device=dev)
+            rhs = kn.heom_rhs_rowcol_factory(*args, dtype=dtype, device=dev,
+                                             **sub)
         elif kernel == "matmul":
             rhs = self._rhs_matmul(dtype, keys, plus_idx, minus_idx, Q, c,
-                                   kn.damp_tensor(keys @ nu, dtype, dev))
+                                   damp, **sub)
         else:
             rhs = self._rhs_einsum(dtype, keys, plus_idx, minus_idx, Q, c,
-                                   kn.damp_tensor(keys @ nu, dtype, dev))
+                                   damp, **sub)
         if edip is None:
             return rhs, nado
         V = self.n * self.n
@@ -221,40 +246,53 @@ class HEOMSolver:
         def rhs_driven(ados, E):
             # reshape copies where a kernel's output is not contiguous
             # (rowcol), so the drive goes into the tensor returned
+            own = ados[lo:hi]
             out = rhs(ados).reshape(-1, V)
-            out.addmm_(ados.reshape(-1, V), Cmu, alpha=E)
-            return out.reshape(ados.shape)
+            out.addmm_(own.reshape(-1, V), Cmu, alpha=E)
+            return out.reshape(own.shape)
 
         return rhs_driven, nado
 
-    def _rhs_einsum(self, dtype, keys, plus_idx, minus_idx, Q, c, damp):
+    def _neighbour_index(self, plus_idx, minus_idx, rows, nsrc):
+        """[plus | minus] neighbour indices of the destination rows, a
+        missing neighbour pointing at row nsrc (the zero row appended to
+        the source stack)."""
+        nado = plus_idx.shape[0]
+        idx = np.concatenate([plus_idx, minus_idx], axis=1)
+        idx = np.where(idx >= nado, nsrc, idx)
+        return torch.as_tensor(kn.dest_rows(idx, rows, nsrc),
+                               dtype=torch.long, device=self.device)
+
+    def _rhs_einsum(self, dtype, keys, plus_idx, minus_idx, Q, c, damp,
+                    rows, nsrc):
         """One gather over [plus; minus] neighbours with complex left/right
-        weights."""
+        weights (destinations ``rows`` of a stack of ``nsrc`` ADOs)."""
         H = self._H_np
         dev = self.device
-        nado = keys.shape[0]
-        n = self.n
+        lo, hi = rows
+        nd = hi - lo
         npdt = numpy_dtype_of(dtype)
-        all_idx = torch.as_tensor(
-            np.concatenate([plus_idx, minus_idx], axis=1), dtype=torch.long,
-            device=dev)                                       # (N, 2M)
+        all_idx = self._neighbour_index(plus_idx, minus_idx, rows,
+                                        nsrc)                 # (N, 2M)
         Q2 = kn.to_tensor(np.concatenate([Q, Q]), dtype, dev)  # (2M, n, n)
         ones = np.ones(keys.shape, dtype=npdt)
-        wl = kn.to_tensor(np.concatenate([ones, keys * c[None, :]], axis=1),
-                          dtype, dev)[:, :, None, None]
-        wr = kn.to_tensor(
-            np.concatenate([ones, keys * np.conj(c)[None, :]], axis=1),
-            dtype, dev)[:, :, None, None]
+        wl = kn.to_tensor(kn.dest_rows(np.concatenate(
+            [ones, keys * c[None, :]], axis=1), rows, 0), dtype,
+            dev)[:, :, None, None]
+        wr = kn.to_tensor(kn.dest_rows(np.concatenate(
+            [ones, keys * np.conj(c)[None, :]], axis=1), rows, 0), dtype,
+            dev)[:, :, None, None]
         H_t = kn.to_tensor(H, dtype, dev)
 
         def rhs(ados):
-            # ados (nado, n, n) or a batch (nado, B, n, n)
+            # ados (nsrc, n, n) or a batch (nsrc, B, n, n)
             ones = (1,) * (ados.dim() - 3)
             padded = torch.cat([ados, ados.new_zeros((1,) + ados.shape[1:])])
-            out = -1j * (H_t @ ados - ados @ H_t)
-            out = out - damp.view((nado,) + ones + (1, 1)) * ados
-            g = padded[all_idx]                    # (nado, 2M, [B,] n, n)
-            wl_, wr_ = (x.view((nado, -1) + ones + (1, 1)) for x in (wl, wr))
+            own = ados[lo:hi]
+            out = -1j * (H_t @ own - own @ H_t)
+            out = out - damp.view((nd,) + ones + (1, 1)) * own
+            g = padded[all_idx]                    # (nd, 2M, [B,] n, n)
+            wl_, wr_ = (x.view((nd, -1) + ones + (1, 1)) for x in (wl, wr))
             out = out - 1j * (
                 torch.einsum("kab, Nk...bc -> N...ac", Q2, wl_ * g)
                 - torch.einsum("Nk...ab, kbc -> N...ac", wr_ * g, Q2))
@@ -262,30 +300,33 @@ class HEOMSolver:
 
         return rhs
 
-    def _rhs_matmul(self, dtype, keys, plus_idx, minus_idx, Q, c, damp):
+    def _rhs_matmul(self, dtype, keys, plus_idx, minus_idx, Q, c, damp,
+                    rows, nsrc):
         """Stacked-superoperator RHS (:func:`kernels.heom_rhs_dot`) on the
-        gathered, occupation-weighted neighbour stack."""
-        nado = keys.shape[0]
+        gathered, occupation-weighted neighbour stack (destinations
+        ``rows`` of a stack of ``nsrc`` ADOs)."""
         n = self.n
         V = n * n
         dev = self.device
+        lo, hi = rows
+        nd = hi - lo
         B0, Bk = kn.heom_superop_split(self._H_np, Q, c)
         B0 = kn.to_tensor(B0, dtype, dev)
         Bk = kn.to_tensor(Bk, dtype, dev)
-        all_idx = torch.as_tensor(
-            np.concatenate([plus_idx, minus_idx], axis=1), dtype=torch.long,
-            device=dev)
-        wocc = kn.to_tensor(
-            np.concatenate([np.ones_like(keys), keys], axis=1), dtype,
-            dev)[:, :, None]
+        all_idx = self._neighbour_index(plus_idx, minus_idx, rows, nsrc)
+        wocc = kn.to_tensor(kn.dest_rows(
+            np.concatenate([np.ones_like(keys), keys], axis=1), rows, 0),
+            dtype, dev)[:, :, None]
 
         def rhs(ados):
-            # ados (nado, n, n) or a batch (nado, B, n, n)
+            # ados (nsrc, n, n) or a batch (nsrc, B, n, n)
             flat = ados.reshape(ados.shape[:-2] + (V,))
             padded = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])])
             g = padded[all_idx] * wocc.view(
-                (nado, -1) + (1,) * (flat.dim() - 1))  # (nado, 2M, [B,] V)
-            return kn.heom_rhs_dot(B0, Bk, damp, flat, g).reshape(ados.shape)
+                (nd, -1) + (1,) * (flat.dim() - 1))  # (nd, 2M, [B,] V)
+            own = flat[lo:hi]
+            return kn.heom_rhs_dot(B0, Bk, damp, own, g).reshape(
+                (nd,) + tuple(ados.shape[1:]))
 
         return rhs
 
@@ -308,10 +349,18 @@ class HEOMSolver:
         npz format; ``resume`` (such a path) starts from the saved window,
         so a run resumed from it returns the rows from there on, with
         ``times`` counted from that window and not from ``t0``, as in the
-        JAX package. Sharded runs (``mesh``) are not yet ported and
-        raise."""
-        if mesh is not None:
-            raise not_yet_ported("HEOMSolver.run(mesh=...)")
+        JAX package.
+
+        ``mesh`` (or the solver's): the ADO axis is cut over the ranks of
+        the mesh's first axis, in chunks of ceil(nado / d) (the last
+        padded with ADOs that stay zero). Each right-hand side is one
+        all-gather of the ADO stack and the chosen kernel on the rank's
+        own destinations (``cuda``: one launch on their edges, so 4 per
+        RK4 step, as unsharded). The whole stack is gathered again only at
+        the output windows and checkpoints, so every rank returns the
+        same whole :class:`Result` as the unsharded run; rank 0 writes the
+        checkpoints."""
+        mesh = self.mesh if mesh is None else check_mesh(mesh)
         if edip is not None and pulse is None:
             raise ValueError("edip given without pulse")
         if e_ops is None:
@@ -320,8 +369,28 @@ class HEOMSolver:
         rho0 = (rho0.to(dev) if isinstance(rho0, torch.Tensor)
                 else torch.as_tensor(np.asarray(rho0), device=dev))
         dtype = complex_dtype_for(rho0, self.H)
-        rhs, nado = self.rhs_fn(dtype, kernel=kernel, edip=edip)
         n = self.n
+        if mesh is None:
+            rhs, nado = self.rhs_fn(dtype, kernel=kernel, edip=edip)
+            local = full = lambda y: y      # noqa: E731
+        else:
+            from ..parallel.mesh import axis_group, gather_rows, local_range
+            group, rank, d = axis_group(mesh)
+            nado = enumerate_hierarchy(len(self._modes), self.lmax)[0].shape[0]
+            chunk = local_range(nado, rank, d)[2]
+            lo, hi, nsrc = rank * chunk, (rank + 1) * chunk, d * chunk
+            rhs_own, _ = self.rhs_fn(dtype, kernel=kernel, edip=edip,
+                                     rows=(lo, hi), nsrc=nsrc)
+
+            def rhs(y, *E):
+                return rhs_own(gather_rows(y, group, d), *E)
+
+            def local(a):
+                return torch.cat(
+                    [a, a.new_zeros((nsrc - nado,) + a.shape[1:])])[lo:hi]
+
+            def full(y):
+                return gather_rows(y, group, d)[:nado]
 
         if edip is None:
             def f(y, t):
@@ -368,22 +437,36 @@ class HEOMSolver:
         if obs is not None:
             obs[0] = obs_of(ados0)
 
-        y = ados0
+        y = local(ados0)
+        whole = ados0
         for w in range(start, nwin):
             for i in range(nout):
                 y = step(y, t0 + (w * nout + i) * dt)
             row = w + 1 - start
-            states[row] = y if store_ados else y[0]
+            whole = full(y)
+            states[row] = whole if store_ados else whole[0]
             if obs is not None:
-                obs[row] = obs_of(y)
+                obs[row] = obs_of(whole)
             if checkpoint is not None and (row % every == 0
                                            or w + 1 == nwin):
-                save_checkpoint(checkpoint, w + 1, [y], dt=dt, nout=nout)
+                self._save(mesh, checkpoint, w + 1, whole, dt, nout)
 
         times = (torch.arange(start, nwin + 1, dtype=torch.float64,
                               device=dev) * dt * nout)
         return Result(times=times, observables=obs, states=states,
-                      rho0=rho0, rho=y[0], ado=y, dt=dt, nt=nt, nout=nout)
+                      rho0=rho0, rho=whole[0], ado=whole, dt=dt, nt=nt,
+                      nout=nout)
+
+    @staticmethod
+    def _save(mesh, path, window, ados, dt, nout):
+        """Checkpoint the whole ADO stack: by rank 0 of a sharded run,
+        which the others wait for."""
+        def write():
+            save_checkpoint(path, window, [ados], dt=dt, nout=nout)
+        if mesh is None:
+            return write()
+        from ..parallel.mesh import axis_group, rank0_write
+        rank0_write(axis_group(mesh)[0], write)
 
     # ------------------------------------------------- correlation funcs
     def correlation_3op_1t(self, rho0, oplist, dt, nt, **kwargs):

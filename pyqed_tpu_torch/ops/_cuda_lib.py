@@ -58,13 +58,13 @@ SIGNATURES = {
 
 class CouplingPlanArgs(ctypes.Structure):
     """``PlanArgs`` of ``csrc/heom_coupling.cu``, field for field."""
-    _fields_ = [("w", _P), ("plan", _P), ("partial", _P), ("nado", _I),
+    _fields_ = [("w", _P), ("plan", _P), ("partial", _P), ("nd", _I),
                 ("ntiles", _I), ("nedges", _I), ("V", _I), ("B", _I)]
 
 
 class CouplingBatchArgs(ctypes.Structure):
     """``BatchArgs`` of ``csrc/heom_coupling.cu``, field for field."""
-    _fields_ = [("nbr", _P), ("w", _P), ("nado", _I), ("nj", _I), ("V", _I),
+    _fields_ = [("nbr", _P), ("w", _P), ("nd", _I), ("nj", _I), ("V", _I),
                 ("B", _I)]
 
 

@@ -21,6 +21,8 @@ D_m = −i c_m left(Q_m) + i c_m* right(Q_m).
 
 Contents:
 
+- the destination rows of a sharded right-hand side: :func:`rhs_rows`,
+  :func:`dest_rows`;
 - host builders (NumPy): :func:`heom_superop_matrix`,
   :func:`heom_superop_split`, :func:`heom_q_projector_sites`,
   :func:`heom_level_structure`, :func:`heom_level_blocks`,
@@ -69,6 +71,34 @@ def damp_tensor(damp, dtype, device):
     if np.iscomplexobj(damp) and np.any(damp.imag != 0):
         return to_tensor(damp, dtype, device)
     return to_tensor(np.real(damp), real_dtype_of(dtype), device)
+
+
+def dest_rows(a, rows, fill):
+    """Rows [lo, hi) of a per-destination host array ``a`` (``rows`` =
+    (lo, hi)), padded with ``fill`` past its end: the operands of a
+    sharded right-hand side, whose last rank's destinations may run past
+    the hierarchy (padding ADOs, which have no edges and stay zero)."""
+    a = np.asarray(a)
+    lo, hi = rows
+    part = a[lo:min(hi, a.shape[0])]
+    if part.shape[0] < hi - lo:
+        part = np.concatenate([part, np.full(
+            (hi - lo - part.shape[0],) + a.shape[1:], fill, a.dtype)])
+    return part
+
+
+def rhs_rows(nado, rows, nsrc):
+    """(lo, hi, nsrc) of a right-hand side: its destinations [lo, hi)
+    (default the whole hierarchy) and the rows of the source stack it is
+    called on (default nado; a sharded run's gathered stack, padded to a
+    multiple of the ranks, has more)."""
+    lo, hi = (0, nado) if rows is None else (int(rows[0]), int(rows[1]))
+    nsrc = nado if nsrc is None else int(nsrc)
+    if not (0 <= lo <= hi <= nsrc and nsrc >= nado):
+        raise ValueError(f"destination rows [{lo}, {hi}) and a source "
+                         f"stack of {nsrc} rows do not fit a hierarchy of "
+                         f"{nado} ADOs")
+    return lo, hi, nsrc
 
 
 # =====================================================================
@@ -212,7 +242,8 @@ def heom_rhs_dot(B0, Bk, damp, flat, g):
 
 
 def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
-                            dtype=torch.complex128, device=None):
+                            dtype=torch.complex128, device=None, rows=None,
+                            nsrc=None):
     """Row/column HEOM RHS for site-projector couplings Q_m = e_s e_sᵀ.
 
     left(Q_m) touches only row s and right(Q_m) only column s, so the
@@ -224,7 +255,9 @@ def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
 
     plus −i[H, ρ_N] − damp_N ρ_N. Returns ``rhs(ados)`` for ados
     (nado, n, n) or a batch (nado, B, n, n), its operands on ``device``
-    (the card when None; raises without one).
+    (the card when None; raises without one). With ``rows`` = (lo, hi)
+    and ``nsrc`` (:func:`rhs_rows`) the closure takes a stack of nsrc ADOs
+    and returns the rows [lo, hi) of the right-hand side only.
     """
     device = resolve_device(device)
     sites = heom_q_projector_sites(Q)
@@ -233,17 +266,23 @@ def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     H = np.asarray(H)
     keys = np.asarray(keys)
     nado, M = keys.shape
+    lo, hi, nsrc = rhs_rows(nado, rows, nsrc)
+    nd = hi - lo
     n = H.shape[0]
     s_list, sidx = np.unique(sites, return_inverse=True)
     nq = len(s_list)
     c = np.asarray(c)
-    kf = keys.astype(np.float64)
-    # gather indices into the (nado+1)·nq stacked rows/columns; row nado
+    kf = dest_rows(keys.astype(np.float64), (lo, hi), 0.0)
+    # gather indices into the (nsrc+1)·nq stacked rows/columns; row nsrc
     # of the padded stack is zero and stands for a missing neighbour
-    idx_p = to_tensor((plus_idx * nq + sidx[None, :]).reshape(-1),
-                      torch.long, device)
-    idx_m = to_tensor((minus_idx * nq + sidx[None, :]).reshape(-1),
-                      torch.long, device)
+
+    def gather_index(idx):
+        idx = np.where(np.asarray(idx) >= nado, nsrc, idx)
+        idx = dest_rows(idx, (lo, hi), nsrc)
+        return to_tensor((idx * nq + sidx[None, :]).reshape(-1), torch.long,
+                         device)
+
+    idx_p, idx_m = gather_index(plus_idx), gather_index(minus_idx)
     s_t = to_tensor(s_list, torch.long, device)
     E = np.zeros((n, nq))
     E[s_list, np.arange(nq)] = 1.0          # slot -> row/col position
@@ -253,36 +292,38 @@ def heom_rhs_rowcol_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     w_row = to_tensor(kf * c[None, :], dtype, device)[..., None]
     w_col = to_tensor(kf * np.conj(c)[None, :], dtype, device)[..., None]
     H_t = to_tensor(H, dtype, device)
-    damp = damp_tensor(keys.astype(np.complex128) @ np.asarray(
-        nu, np.complex128), dtype, device)
+    damp = damp_tensor(dest_rows(keys.astype(np.complex128) @ np.asarray(
+        nu, np.complex128), (lo, hi), 0), dtype, device)
 
     def rhs(ados):
         batch = tuple(ados.shape[1:-2])         # () or (B,)
         ones = (1,) * len(batch)
         padded = torch.cat([ados, ados.new_zeros((1,) + ados.shape[1:])])
-        # rows/columns s of every ADO, (nado + 1)·nq of them, batch inside
+        # rows/columns s of every ADO, (nsrc + 1)·nq of them, batch inside
         rows = padded[..., s_t, :].movedim(-2, 1).reshape(
-            ((nado + 1) * nq,) + batch + (n,))
+            ((nsrc + 1) * nq,) + batch + (n,))
         cols = padded[..., :, s_t].movedim(-1, 1).reshape(
-            ((nado + 1) * nq,) + batch + (n,))
-        gp_r = rows[idx_p].reshape((nado, M) + batch + (n,))
-        gm_r = rows[idx_m].reshape((nado, M) + batch + (n,))
-        gp_c = cols[idx_p].reshape((nado, M) + batch + (n,))
-        gm_c = cols[idx_m].reshape((nado, M) + batch + (n,))
-        wr = w_row.view((nado, M) + ones + (1,))
-        wc = w_col.view((nado, M) + ones + (1,))
+            ((nsrc + 1) * nq,) + batch + (n,))
+        gp_r = rows[idx_p].reshape((nd, M) + batch + (n,))
+        gm_r = rows[idx_m].reshape((nd, M) + batch + (n,))
+        gp_c = cols[idx_p].reshape((nd, M) + batch + (n,))
+        gm_c = cols[idx_m].reshape((nd, M) + batch + (n,))
+        wr = w_row.view((nd, M) + ones + (1,))
+        wc = w_col.view((nd, M) + ones + (1,))
         row_acc = torch.einsum("Nm...x, mq -> Nq...x", gp_r + wr * gm_r, G_t)
         col_acc = torch.einsum("Nm...x, mq -> Nq...x", gp_c + wc * gm_c, G_t)
         out = -1j * (torch.einsum("aq, Nq...x -> N...ax", E_t, row_acc)
                      - torch.einsum("xq, Nq...a -> N...ax", E_t, col_acc))
-        out = out - 1j * (H_t @ ados - ados @ H_t)
-        return out - damp.view((nado,) + ones + (1, 1)) * ados
+        own = ados[lo:hi]
+        out = out - 1j * (H_t @ own - own @ H_t)
+        return out - damp.view((nd,) + ones + (1, 1)) * own
 
     return rhs
 
 
 def heom_rhs_levels_xla_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
-                                dtype=torch.complex128, device=None):
+                                dtype=torch.complex128, device=None,
+                                rows=None, nsrc=None):
     """Order-aware level-blocked HEOM RHS in plain torch (the name is the
     JAX package's, where this form runs through XLA).
 
@@ -294,7 +335,10 @@ def heom_rhs_levels_xla_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     Unlike the JAX form, which keeps only Re(keys @ nu), complex bath
     rates enter the damping in full. Returns ``rhs(ados)`` for ados
     (nado, n, n) or a batch (nado, B, n, n), its operands on ``device``
-    (the card when None; raises without one).
+    (the card when None; raises without one). With ``rows`` = (lo, hi)
+    and ``nsrc`` (:func:`rhs_rows`) the closure takes a stack of nsrc ADOs
+    and returns the rows [lo, hi) of the right-hand side only: each level
+    keeps the rows of its selections that fall in the range.
     """
     device = resolve_device(device)
     blocks = heom_level_blocks(H, Q, c, keys, plus_idx, minus_idx)
@@ -304,32 +348,43 @@ def heom_rhs_levels_xla_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     L = len(sizes) - 1
     keys = np.asarray(keys)
     nado = keys.shape[0]
+    lo, hi, nsrc = rhs_rows(nado, rows, nsrc)
+    nd = hi - lo
+    # each level's destinations in [lo, hi): rows [a, b) of the level
+    sel = [(min(max(lo - o, 0), sz), min(max(hi - o, 0), sz))
+           for o, sz in zip(offs, sizes)]
     C = to_tensor(blocks["C"], dtype, device)
     Pt = to_tensor(blocks["Pt"], dtype, device)
     Dt = to_tensor(blocks["Dt"], dtype, device)
-    damp = damp_tensor(keys @ np.asarray(nu), dtype, device)
-    Spf = [to_tensor(S.reshape(-1, S.shape[-1]), dtype, device)
-           for S in blocks["Splus"]]
-    Smb = [to_tensor(S, dtype, device) for S in blocks["Sminus"]]
+    damp = damp_tensor(dest_rows(keys @ np.asarray(nu), (lo, hi), 0), dtype,
+                       device)
+    Spf = [to_tensor(S[:, a:b].reshape(-1, S.shape[-1]), dtype, device)
+           for S, (a, b) in zip(blocks["Splus"], sel)]
+    Smb = [to_tensor(S[:, a:b], dtype, device)
+           for S, (a, b) in zip(blocks["Sminus"], sel[1:])]
+    npad = nd - sum(b - a for a, b in sel)     # destinations past nado
 
     def rhs(ados):
         batch = tuple(ados.shape[1:-2])         # () or (B,)
-        flat = ados.reshape((nado,) + batch + (V,))
-        out = flat @ C - damp.view((nado,) + (1,) * (len(batch) + 1)) * flat
+        flat = ados.reshape((nsrc,) + batch + (V,))
+        own = flat[lo:hi]
+        out = own @ C - damp.view((nd,) + (1,) * (len(batch) + 1)) * own
         plus = []
         for l in range(L):                  # dest l, src l+1
             src = flat[offs[l + 1]:offs[l + 1] + sizes[l + 1]]
             y = (Spf[l] @ src.reshape(sizes[l + 1], -1)).reshape(
-                (M, sizes[l]) + batch + (V,))
+                (M, sel[l][1] - sel[l][0]) + batch + (V,))
             plus.append(torch.einsum("kd...v, kvw -> d...w", y, Pt))
-        plus.append(flat.new_zeros((sizes[L],) + batch + (V,)))
-        minus = [flat.new_zeros((sizes[0],) + batch + (V,))]
+        plus.append(flat.new_zeros((sel[L][1] - sel[L][0] + npad,) + batch
+                                   + (V,)))
+        minus = [flat.new_zeros((sel[0][1] - sel[0][0],) + batch + (V,))]
         for l in range(1, L + 1):           # dest l, src l-1
             src = flat[offs[l - 1]:offs[l - 1] + sizes[l - 1]]
             z = torch.einsum("s...v, kvw -> ks...w", src, Dt)
             minus.append(torch.einsum("kds, ks...w -> d...w", Smb[l - 1], z))
+        minus.append(flat.new_zeros((npad,) + batch + (V,)))
         out = out + torch.cat(plus) + torch.cat(minus)
-        return out.reshape(ados.shape)
+        return out.reshape((nd,) + tuple(ados.shape[1:]))
 
     return rhs
 
@@ -360,8 +415,11 @@ def heom_coupling_ref(F, nbr, w, OpT):
     """Plain version of :func:`heom_coupling`: gather, weight, contract.
 
     out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j]; a −1 in ``nbr`` picks the
-    zero row appended to F. F (nado, V), or (nado, B, V) for a batch:
-    out[d, b] = Σ_j w[d, j] F[nbr[d, j], b] @ OpT[j]."""
+    zero row appended to F. F (nsrc, V), or (nsrc, B, V) for a batch:
+    out[d, b] = Σ_j w[d, j] F[nbr[d, j], b] @ OpT[j]; nbr and w are
+    (nd, nj), one row per destination, and out is (nd, ...): the sources
+    may be more than the destinations (a sharded hierarchy's gathered
+    stack against one rank's destinations)."""
     padded = torch.cat([F, F.new_zeros((1,) + F.shape[1:])])
     wb = w.view(w.shape + (1,) * (F.dim() - 1))
     g = padded[nbr.long()] * wb                   # (nado, nj, [B,] V)
@@ -405,17 +463,24 @@ class CouplingPlan:
     arrived: torch.Tensor   # (nado,), zero between calls
     w: torch.Tensor         # (edges,) real: the edge's weight
     edgeless: bool          # some destination has no edge (its row is 0)
+    nsrc: int               # rows of the source stack F the plan indexes
     launch_args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def nedges(self):
         return self.src.shape[0]
 
+    @property
+    def nd(self):
+        return self.dst_ptr.shape[0] - 1
 
-def heom_coupling_plan(nbr, w):
+
+def heom_coupling_plan(nbr, w, nsrc=None):
     """Edge-major plan of :func:`heom_coupling` for the hierarchy ``nbr``
-    ((nado, nj) int32, −1: no neighbour) and its weights ``w`` ((nado, nj)
-    float64 or float32), contiguous tensors on one device. Both are
+    ((nd, nj) int32: row d holds destination d's sources, rows of a stack
+    of ``nsrc`` (default nd) ADOs, −1: no neighbour) and its weights ``w``
+    ((nd, nj) float64 or float32), contiguous tensors on one device. In
+    the field names below nado is nd, the destinations. Both are
     checked here, once per right-hand side
     (:func:`heom_rhs_coupling_factory`); the plan is built on the host
     from copies of them, and its tensors lie on their device.
@@ -431,9 +496,10 @@ def heom_coupling_plan(nbr, w):
     operands = (nbr, w)
     nbr, w = nbr.cpu().numpy(), w.cpu().numpy()
     nado, nj = nbr.shape
-    if nbr.size and not (nbr.min() >= -1 and nbr.max() < nado):
+    nsrc = nado if nsrc is None else int(nsrc)
+    if nbr.size and not (nbr.min() >= -1 and nbr.max() < nsrc):
         raise ValueError(f"heom_coupling: nbr holds an index outside "
-                         f"[-1, {nado})")
+                         f"[-1, {nsrc})")
     jj, dd = np.nonzero(nbr.T >= 0)           # sorted by j, then by d
     counts = np.bincount(jj, minlength=nj)
     starts = np.cumsum(counts) - counts
@@ -454,7 +520,7 @@ def heom_coupling_plan(nbr, w):
     return CouplingPlan(operands=operands, versions=versions, ints=ints,
                         **views,
                         w=to_tensor(w[dd, jj], operands[1].dtype, device),
-                        edgeless=bool(np.any(deg == 0)))
+                        edgeless=bool(np.any(deg == 0)), nsrc=nsrc)
 
 
 _KERNEL_DTYPES = {torch.complex128: torch.float64,
@@ -469,7 +535,7 @@ def _check_graph(nbr, w):
         raise TypeError(f"heom_coupling: w must be float64 or float32, got "
                         f"{w.dtype}")
     if nbr.dim() != 2 or w.shape != nbr.shape:
-        raise ValueError(f"heom_coupling: expected nbr and w (nado, nj), got "
+        raise ValueError(f"heom_coupling: expected nbr and w (nd, nj), got "
                          f"{tuple(nbr.shape)} and {tuple(w.shape)}")
     if w.device != nbr.device:
         raise ValueError(f"heom_coupling: w is on {w.device}, nbr on "
@@ -480,9 +546,9 @@ def _check_graph(nbr, w):
         raise ValueError("heom_coupling: nbr and w must be contiguous")
 
 
-def _check_operands(F, OpT, nbr, w):
-    """The checks of F and OpT against a checked nbr and w, made on every
-    call."""
+def _check_operands(F, OpT, nbr, w, nsrc):
+    """The checks of F ((nsrc, V) or (nsrc, B, V)) and OpT against a
+    checked nbr and w, made on every call."""
     rdt = _KERNEL_DTYPES.get(F.dtype)
     if rdt is None:
         raise TypeError(f"heom_coupling: F must be complex128 or complex64, "
@@ -491,14 +557,14 @@ def _check_operands(F, OpT, nbr, w):
         raise TypeError(f"heom_coupling: OpT is {OpT.dtype}, F is {F.dtype}")
     if w.dtype != rdt:
         raise TypeError(f"heom_coupling: w must be {rdt}, got {w.dtype}")
-    nado, nj = nbr.shape
-    if (F.dim() not in (2, 3) or F.shape[0] != nado
+    nj = nbr.shape[1]
+    if (F.dim() not in (2, 3) or F.shape[0] != nsrc
             or OpT.shape != (nj, F.shape[-1], F.shape[-1])):
         raise ValueError(
             f"heom_coupling: shapes F {tuple(F.shape)}, nbr "
             f"{tuple(nbr.shape)}, w {tuple(w.shape)}, OpT "
-            f"{tuple(OpT.shape)} do not agree: expected F (nado, V) or "
-            "(nado, B, V), nbr and w (nado, nj), OpT (nj, V, V)")
+            f"{tuple(OpT.shape)} do not agree: expected F ({nsrc}, V) or "
+            f"({nsrc}, B, V), nbr and w (nd, nj), OpT (nj, V, V)")
     # nbr is on the CPU or on a card (checked with the graph)
     if not (F.is_cuda and OpT.is_cuda
             and F.get_device() == OpT.get_device() == nbr.get_device()
@@ -525,13 +591,13 @@ def _coupling_launch_args(plan, F, V, B, batched):
         fn = (lib.heom_coupling_batched_c128 if c128
               else lib.heom_coupling_batched_c64)
         args = _cuda_lib.CouplingBatchArgs(
-            nbr.data_ptr(), w.data_ptr(), nbr.shape[0], nbr.shape[1], V, B)
+            nbr.data_ptr(), w.data_ptr(), plan.nd, nbr.shape[1], V, B)
         return fn, ctypes.addressof(args), args, None
     fn = lib.heom_coupling_c128 if c128 else lib.heom_coupling_c64
     partial = F.new_empty((plan.nedges, B, V))
     args = _cuda_lib.CouplingPlanArgs(
         plan.w.data_ptr(), plan.ints.data_ptr(), partial.data_ptr(),
-        F.shape[0], plan.tiles.shape[0], plan.nedges, V, B)
+        plan.nd, plan.tiles.shape[0], plan.nedges, V, B)
     return fn, ctypes.addressof(args), args, partial
 
 
@@ -570,7 +636,10 @@ def _refuse_grad(fn, *tensors):
 
 def heom_coupling(F, nbr, w, OpT, plan=None):
     """HEOM coupling term, out[d] = Σ_j w[d, j] F[nbr[d, j]] @ OpT[j]
-    (for a batch, out[d, b] = Σ_j w[d, j] F[nbr[d, j], b] @ OpT[j]).
+    (for a batch, out[d, b] = Σ_j w[d, j] F[nbr[d, j], b] @ OpT[j]), for
+    the nd destinations of nbr's rows from a stack F of nsrc sources (nsrc
+    = nd for a whole hierarchy; a sharded run passes its all-gathered
+    stack and its own destinations' rows, nsrc > nd).
 
     Replaces the level-blocked Pallas kernel of the JAX package
     (``pyqed_tpu/ops/pallas_kernels.py:681-769``). That kernel multiplies
@@ -602,9 +671,11 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
       trip of partials, 1.7 waves of blocks walking 256 batch rows one
       after another, and a long summing tail.
 
-    F complex128/complex64, nbr (nado, nj) int32 (−1: no neighbour), w
-    (nado, nj) real of F's precision, OpT (nj, V, V) of F's dtype, all
-    contiguous and on one device. ``plan``, from
+    F (nsrc, V) or (nsrc, B, V) complex128/complex64, nbr (nd, nj) int32
+    (indices below nsrc; −1: no neighbour), w (nd, nj) real of F's
+    precision, OpT (nj, V, V) of F's dtype, all contiguous and on one
+    device; the result is (nd, ...). ``plan`` fixes nsrc (its ``nsrc``),
+    else it is F's row count. ``plan``, from
     :func:`heom_coupling_plan` on these very nbr and w tensors (the
     wrapper raises for any other, or for these changed in place since),
     is built once per right-hand side by :func:`heom_rhs_coupling_factory`:
@@ -623,16 +694,23 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
     """
     if plan is None:
         _check_graph(nbr, w)
+        nsrc = F.shape[0]
     elif (plan.operands[0] is not nbr or plan.operands[1] is not w
           or plan.versions != (nbr._version, w._version)):
         raise ValueError("heom_coupling: the plan was built from other nbr "
                          "and w tensors, or they were changed since")
-    _check_operands(F, OpT, nbr, w)
+    else:
+        nsrc = plan.nsrc
+    _check_operands(F, OpT, nbr, w, nsrc)
+    if plan is None and nbr.numel() and int(nbr.max()) >= nsrc:
+        raise ValueError(f"heom_coupling: shapes F {tuple(F.shape)} and nbr "
+                         f"{tuple(nbr.shape)} do not agree: nbr holds an "
+                         f"index outside [-1, {nsrc})")
     if not F.is_cuda:
         return heom_coupling_ref(F, nbr, w, OpT)
     _refuse_grad("heom_coupling", F, w, OpT)
     if plan is None:
-        plan = heom_coupling_plan(nbr, w)
+        plan = heom_coupling_plan(nbr, w, nsrc)
     return _coupling_launch(F, OpT, plan, coupling_batched(F))
 
 
@@ -646,10 +724,11 @@ def _coupling_launch(F, OpT, plan, batched):
     """One launch of the coupling kernel on checked CUDA operands, by the
     destination-major design when ``batched``, else by the edge-major one
     (chip_smoke.py times both at the same batch through this)."""
+    shape = (plan.nd,) + tuple(F.shape[1:])
     if plan.nedges == 0 or F.numel() == 0:
-        return torch.zeros_like(F)
-    out = (torch.zeros_like(F) if plan.edgeless and not batched
-           else torch.empty_like(F))
+        return F.new_zeros(shape)
+    out = (F.new_zeros(shape) if plan.edgeless and not batched
+           else F.new_empty(shape))
     key = (F.shape[-1], F.shape[1] if F.dim() == 3 else 1, batched)
     args = plan.launch_args.get(key)
     if args is None:
@@ -679,7 +758,8 @@ def drive_superop(edip):
 
 
 def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
-                              dtype=torch.complex128, device=None):
+                              dtype=torch.complex128, device=None,
+                              rows=None, nsrc=None):
     """HEOM RHS through :func:`heom_coupling` (kernel name ``cuda``; the
     counterpart of the JAX package's ``heom_rhs_levels_factory``). The
     local term flat @ C − damp·flat stays a torch matmul, outside the
@@ -688,35 +768,46 @@ def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     the batch (F (nado, B, V), the ADO axis outermost, so a gathered
     neighbour is one contiguous (B, V) block) and one (nado·B, V) @ (V, V)
     product for the local term. Its operands lie on ``device`` (the card
-    when None; raises without one)."""
+    when None; raises without one).
+
+    With ``rows`` = (lo, hi) and ``nsrc`` (:func:`rhs_rows`) the closure
+    takes a stack of nsrc ADOs (a sharded run's all-gathered stack) and
+    returns the rows [lo, hi) only: the kernel runs on those destinations'
+    edges, with nbr indexing the whole stack (nsrc > nd), still one launch
+    a call."""
     device = resolve_device(device)
     keys = np.asarray(keys)
     nado = keys.shape[0]
+    lo, hi, nsrc = rhs_rows(nado, rows, nsrc)
+    nd = hi - lo
     n = np.asarray(H).shape[-1]
     V = n * n
     C, OpT, nbr, w = heom_coupling_operands(H, Q, c, keys, plus_idx,
                                             minus_idx)
     C_t = to_tensor(C, dtype, device)
     OpT_t = to_tensor(OpT, dtype, device)
-    nbr_t = to_tensor(nbr, torch.int32, device)
-    w_t = to_tensor(w, real_dtype_of(dtype), device)
-    plan = heom_coupling_plan(nbr_t, w_t)
+    nbr_t = to_tensor(dest_rows(nbr, (lo, hi), -1), torch.int32, device)
+    w_t = to_tensor(dest_rows(w, (lo, hi), 0.0), real_dtype_of(dtype), device)
+    plan = heom_coupling_plan(nbr_t, w_t, nsrc)
     # complex column (complex bath rates enter in full): addcmul_ below
     # needs the operands' dtype
-    damp = to_tensor((keys @ np.asarray(nu))[:, None], dtype, device)
+    damp = to_tensor(dest_rows((keys @ np.asarray(nu))[:, None], (lo, hi), 0),
+                     dtype, device)
 
     def rhs(ados):
         if ados.dim() == 3:
-            flat = ados.reshape(nado, V)
+            flat = ados.reshape(nsrc, V)
+            own = flat[lo:hi]
             out = heom_coupling(flat, nbr_t, w_t, OpT_t, plan=plan)
-            out.addmm_(flat, C_t)
-            out.addcmul_(damp, flat, value=-1)
-            return out.reshape(nado, n, n)
-        flat = ados.reshape(nado, -1, V)
+            out.addmm_(own, C_t)
+            out.addcmul_(damp, own, value=-1)
+            return out.reshape(nd, n, n)
+        flat = ados.reshape(nsrc, -1, V)
+        own = flat[lo:hi]
         out = heom_coupling(flat, nbr_t, w_t, OpT_t, plan=plan)
-        out.view(-1, V).addmm_(flat.view(-1, V), C_t)
-        out.addcmul_(damp[:, :, None], flat, value=-1)
-        return out.reshape(ados.shape)
+        out.view(-1, V).addmm_(own.reshape(-1, V), C_t)
+        out.addcmul_(damp[:, :, None], own, value=-1)
+        return out.reshape((nd,) + tuple(ados.shape[1:]))
 
     return rhs
 

@@ -28,8 +28,9 @@ from typing import Callable
 
 import torch
 
-from ..config import not_yet_ported, resolve_device
+from ..config import resolve_device
 from ..core.dynamics import GraphScan
+from ..parallel.mesh import check_mesh
 
 BLOCK = 100        # steps whose draws are made at once
 
@@ -62,10 +63,17 @@ class DMC:
         self.potential = potential
         self.mass = mass
 
-    def step_fn(self, dt):
+    def step_fn(self, dt, shard=None):
         """``step((x, w, eref), xi, u) -> ((x, w, eref), E_est)``: one DMC
         step of the JAX package's scan on the draws ``xi`` (nw, ndim)
-        standard normal and ``u`` (a 0-dim uniform)."""
+        standard normal and ``u`` (a 0-dim uniform).
+
+        ``shard`` = (group, d, lo, hi, nw): the walkers [lo, hi) of nw
+        over the group's d ranks; x, w and xi are this rank's rows. The
+        moves and weights are local; the comb is global: one all-gather
+        of the moved walkers with their weights and energies, then the
+        unsharded step's sums, cumsum and search on the whole population,
+        each rank keeping the walkers its teeth [lo, hi) pick."""
         mass = self.mass
         sig = math.sqrt(dt / mass)
         if self.drift is not None:
@@ -86,6 +94,8 @@ class DMC:
                 e_old, e_new = pot(x), pot(xnew)
             # branching factor with the symmetrized local energy
             w = w * torch.exp(-dt * (0.5 * (e_old + e_new) - eref))
+            if shard is not None:
+                return sharded_comb(xnew, w, e_new, eref, u)
             W = torch.sum(w)
             E_est = torch.sum(w * e_new) / W
             # population control: eref toward keeping sum(w) = N
@@ -93,46 +103,103 @@ class DMC:
             idx, _ = comb_resample(torch.cumsum(w / W, 0), u, n)
             return (xnew[idx], torch.ones_like(w), eref_new), E_est
 
+        def sharded_comb(xnew, w, e_new, eref, u):
+            from ..parallel.mesh import gather_rows
+            group, d, lo, hi, n = shard
+            nd = xnew.shape[1]
+            full = gather_rows(torch.cat([xnew, w[:, None], e_new[:, None]],
+                                         1), group, d, n=n)
+            # contiguous, so the sums below run as the unsharded step's
+            xall, wall, eall = (t.contiguous() for t in (
+                full[:, :nd], full[:, nd], full[:, nd + 1]))
+            W = torch.sum(wall)
+            E_est = torch.sum(wall * eall) / W
+            eref_new = E_est - 0.5 * torch.log(W / n) / dt
+            idx, _ = comb_resample(torch.cumsum(wall / W, 0), u, n)
+            return (xall[idx[lo:hi]], torch.ones_like(w), eref_new), E_est
+
         return step
 
-    def walk(self, x0, xi, u, dt=0.01, eref=0.0):
+    def _walkers(self, mesh, nwalkers):
+        """(lo, hi, shard, finish): this rank's walkers [lo, hi), the
+        ``shard`` of :meth:`step_fn` and the function that gathers the
+        final walkers (all walkers and no-ops without a mesh)."""
+        mesh = check_mesh(mesh)
+        if mesh is None:
+            return 0, nwalkers, None, lambda x: x
+        from ..parallel.mesh import axis_group, gather_rows, local_range
+        group, rank, d = axis_group(mesh)
+        lo, hi, _ = local_range(nwalkers, rank, d)
+        return lo, hi, (group, d, lo, hi, nwalkers), (
+            lambda x: gather_rows(x, group, d, n=nwalkers))
+
+    def walk(self, x0, xi, u, dt=0.01, eref=0.0, mesh=None):
         """The walk of :meth:`run` on given draws: ``x0`` (nw, ndim),
         ``xi`` (nsteps, nw, ndim) standard normal, ``u`` (nsteps,)
         uniform on [0, 1). Returns (E trajectory (nsteps,), final
-        walkers)."""
+        walkers). With ``mesh`` every rank passes the whole walkers and
+        draws and moves its chunk (:meth:`run`)."""
         x0 = torch.as_tensor(x0)
-        carry = (x0, torch.ones(x0.shape[0], dtype=x0.dtype,
-                                device=x0.device),
+        lo, hi, shard, finish = self._walkers(mesh, x0.shape[0])
+        carry = (x0[lo:hi].contiguous(),
+                 torch.ones(hi - lo, dtype=x0.dtype, device=x0.device),
                  torch.as_tensor(eref, dtype=x0.dtype, device=x0.device))
-        (xf, _, _), E = GraphScan(self.step_fn(dt))(
-            carry, torch.as_tensor(xi, device=x0.device),
+        (xf, _, _), E = GraphScan(self.step_fn(dt, shard))(
+            carry, torch.as_tensor(xi, device=x0.device)[:, lo:hi],
             torch.as_tensor(u, device=x0.device))
-        return E, xf.clone()
+        return E, finish(xf.clone())
 
     def run(self, key, nwalkers=2048, nsteps=500, dt=0.01, eref=0.0,
             nequil=100, mesh=None, device=None):
         """Returns (E estimate, E trajectory, final walkers), tensors on
-        ``device`` (the card when None); ``key`` an integer seed."""
-        if mesh is not None:
-            raise not_yet_ported("DMC.run(mesh=...)")
+        ``device`` (the card when None); ``key`` an integer seed.
+
+        ``mesh`` (a DeviceMesh): the walkers are cut over its first axis
+        (chunks of ceil(nwalkers / d)); every rank draws the whole draw
+        tensors from the same generator and keeps its rows, and the comb
+        runs on the gathered population (:meth:`step_fn`), so the run
+        equals the unsharded one draw for draw. Every rank returns the
+        whole result."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(key))
-        f64 = torch.float64
         x = torch.randn((nwalkers, self.ndim), generator=gen, device=dev,
-                        dtype=f64) * 0.5
-        carry = (x, torch.ones(nwalkers, dtype=f64, device=dev),
+                        dtype=torch.float64) * 0.5
+        return self._run(gen, x, nsteps, dt, eref, nequil, mesh)
+
+    def _run(self, gen, x, nsteps, dt, eref, nequil, mesh):
+        """:meth:`run` from the start walkers ``x`` (nwalkers, ndim), its
+        draws continuing the generator ``gen``."""
+        dev, f64 = x.device, torch.float64
+        nwalkers = x.shape[0]
+        lo, hi, shard, finish = self._walkers(mesh, nwalkers)
+        carry = (x[lo:hi].contiguous(),
+                 torch.ones(hi - lo, dtype=f64, device=dev),
                  torch.tensor(eref, dtype=f64, device=dev))
-        carry, E_traj = GraphScan(self.step_fn(dt)).blocks(
+        carry, E_traj = GraphScan(self.step_fn(dt, shard)).blocks(
             carry, nsteps, BLOCK, lambda _, m: (
                 torch.randn((m, nwalkers, self.ndim), generator=gen,
-                            device=dev, dtype=f64),
+                            device=dev, dtype=f64)[:, lo:hi],
                 torch.rand((m,), generator=gen, device=dev, dtype=f64)))
-        return torch.mean(E_traj[nequil:]), E_traj, carry[0].clone()
+        return torch.mean(E_traj[nequil:]), E_traj, finish(carry[0].clone())
 
-    def run_sharded(self, key, mesh, nwalkers=8192, **kwargs):
-        """Walker-sharded run over a device mesh: not yet ported (it needs
-        ``parallel/``)."""
-        raise not_yet_ported("DMC.run_sharded")
+    def run_sharded(self, key, mesh, nwalkers=8192, nsteps=500, dt=0.01,
+                    eref=0.0, nequil=100, device=None):
+        """Walker-sharded run over ``mesh`` (its first axis), as the JAX
+        package's: the walkers are cut to a multiple of the ranks, the
+        start walkers are drawn first (0.5 · normal) from the generator of
+        ``key`` and the run continues that generator. Unlike the JAX
+        package, whose ``run_sharded`` sets a start that its ``run`` never
+        reads, the run starts from these walkers."""
+        if check_mesh(mesh) is None:
+            raise TypeError("run_sharded needs a torch.distributed "
+                            "DeviceMesh")
+        d = mesh.size(0)
+        nwalkers = (nwalkers // d) * d
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(key))
+        x0 = torch.randn((nwalkers, self.ndim), generator=gen, device=dev,
+                         dtype=torch.float64) * 0.5
+        return self._run(gen, x0, nsteps, dt, eref, nequil, mesh)
 
 
 class VMC:

@@ -11,8 +11,8 @@ the JAX package's own ``jax.random`` draws can be fed to
 :meth:`PIMC.sweeps`. ``run(key)`` draws blocks of sweeps from a
 ``torch.Generator`` on the device seeded by the integer ``key`` and feeds
 them to one sweep captured as a CUDA graph on the card; the thermalising
-and the measuring sweeps are the same graph. ``mesh=`` and
-``use_shard_map`` are not yet ported (they raise).
+and the measuring sweeps are the same graph. ``PIMC.run(mesh=)`` cuts
+the paths over the ranks of a mesh (:meth:`PIMC.run`).
 """
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ from typing import Callable, Optional
 
 import torch
 
-from ..config import not_yet_ported, resolve_device
+from ..config import resolve_device
 from ..core.dynamics import GraphScan
+from ..parallel.mesh import check_mesh
 
 BLOCK = 50         # sweeps whose draws are made at once
 
@@ -135,15 +136,42 @@ class PIMC:
 
         return sweep
 
-    def sweeps(self, paths0, draws, step=0.5):
+    @staticmethod
+    def _shard(mesh, npaths):
+        """(lo, hi, finish) of this rank's equal shard of ``npaths`` paths
+        (all of them without a mesh); ``finish(paths, (ev, et, acc))``
+        gathers the paths and averages the per-sweep estimators over the
+        ranks (identity without a mesh)."""
+        mesh = check_mesh(mesh)
+        if mesh is None:
+            return 0, npaths, lambda paths, ys: (paths, ys)
+        from ..parallel.mesh import all_reduce_sum, axis_group, gather_rows
+        group, rank, d = axis_group(mesh)
+        if npaths % d:
+            raise ValueError(f"PIMC: npaths={npaths} does not divide over {d} "
+                             "ranks (equal shards keep the estimators' means "
+                             "exact)")
+        m = npaths // d
+
+        def finish(paths, ys):
+            ys = tuple(all_reduce_sum(torch.stack(ys), group) / d)
+            return gather_rows(paths, group, d), ys
+
+        return rank * m, (rank + 1) * m, finish
+
+    def sweeps(self, paths0, draws, step=0.5, mesh=None):
         """Sweeps of :meth:`run` on given draws (the tuple of
         :meth:`draws`, leading axis the sweep). Returns (final paths,
-        (e_vir, e_th, acceptance) per sweep)."""
+        (e_vir, e_th, acceptance) per sweep). With ``mesh`` every rank
+        passes the whole paths and draws and sweeps its shard
+        (:meth:`run`)."""
         paths0 = torch.as_tensor(paths0)
+        lo, hi, finish = self._shard(mesh, paths0.shape[0])
         paths, ys = GraphScan(self.sweep_fn(step))(
-            paths0, *(torch.as_tensor(d, device=paths0.device)
-                      for d in draws))
-        return paths.clone(), ys
+            paths0[lo:hi].contiguous(),
+            *(torch.as_tensor(d, device=paths0.device)[:, lo:hi]
+              for d in draws))
+        return finish(paths.clone(), ys)
 
     def run(self, key, npaths=2048, nsweeps=2000, ntherm=500, step=0.5,
             mesh=None, use_shard_map=False, device=None):
@@ -151,21 +179,52 @@ class PIMC:
         estimators averaged over the ``nsweeps`` sweeps after ``ntherm``;
         ``key`` an integer seed, the paths a tensor on ``device`` (the
         card when None). The per-sweep estimators are kept in
-        ``self.trace_`` (e_vir, e_th, acceptance), for error bars."""
-        if mesh is not None or use_shard_map:
-            raise not_yet_ported("PIMC.run(mesh=..., use_shard_map=...)")
+        ``self.trace_`` (e_vir, e_th, acceptance), for error bars.
+
+        ``mesh`` (a DeviceMesh): the paths are cut over its first axis in
+        equal shards (npaths must divide). Every rank draws the whole
+        start and the whole draws of every sweep from the generator of
+        ``key`` and keeps its rows, so the run equals the unsharded one
+        draw for draw; the per-sweep estimators, means over equal shards,
+        are averaged over the ranks once at the end (one all-reduce of the
+        trace), and the paths gathered once. ``use_shard_map=True`` (with
+        a mesh) runs an independent chain on every rank instead, as the
+        JAX package's ``shard_map`` path: the start is still the global
+        one cut to the rank's rows, the sweeps' draws come from the rank's
+        own generator (:meth:`chain_seed`), and the estimators are
+        averaged once over the ranks (the JAX package's ``pmean``)."""
+        if use_shard_map and mesh is None:
+            raise ValueError("use_shard_map=True needs a mesh")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(key))
         paths = 0.5 * torch.randn((npaths, self.M, self.ndim),
                                   generator=gen, device=dev,
                                   dtype=torch.float64)
+        lo, hi, finish = self._shard(mesh, npaths)
+        paths, n = paths[lo:hi].contiguous(), npaths
+        if use_shard_map:
+            gen = torch.Generator(device=dev).manual_seed(
+                self.chain_seed(key, mesh.get_local_rank(
+                    mesh.mesh_dim_names[0])))
+            lo, hi, n = 0, hi - lo, hi - lo
         scan = GraphScan(self.sweep_fn(step))
-        draws = lambda _, m: self.draws(gen, m, npaths, dev)   # noqa: E731
+
+        def draws(_, m):
+            return tuple(t[:, lo:hi] for t in self.draws(gen, m, n, dev))
+
         paths, _ = scan.blocks(paths, ntherm, BLOCK, draws)
         paths, (ev, et, acc) = scan.blocks(paths, nsweeps, BLOCK, draws)
+        paths, (ev, et, acc) = finish(paths, (ev, et, acc))
         self.trace_ = (ev, et, acc)
         return (float(torch.mean(ev)), float(torch.mean(et)),
                 float(torch.mean(acc)), paths.clone())
+
+    @staticmethod
+    def chain_seed(key, rank):
+        """The seed of rank ``rank``'s generator in ``run(key,
+        use_shard_map=True)``: its own stream, as the JAX package splits
+        its key over the devices."""
+        return int(key) * 1_000_003 + 1 + int(rank)
 
 
 class BosonPIMC:

@@ -24,8 +24,8 @@ move recomputing ln psi in full as the JAX package does, batched over
 walkers; on the card one sweep is one CUDA graph. The exchange flags of
 the sweeps come from ``np.random.default_rng(0)`` on the host, as in the
 JAX package, and pick one of two graphs, with and without the exchange
-move. ``mesh=`` is not yet ported (it raises). All quantities in atomic
-units; ``HART2K`` converts to Kelvin.
+move. ``run(mesh=)`` cuts the walkers over the ranks of a mesh. All
+quantities in atomic units; ``HART2K`` converts to Kelvin.
 """
 from __future__ import annotations
 
@@ -35,8 +35,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..config import not_yet_ported, resolve_device
+from ..config import resolve_device
 from ..core.dynamics import GraphScan
+from ..parallel.mesh import check_mesh
 
 __all__ = ["hfdbhe", "fcc_lattice", "hcp_lattice", "build_pairs",
            "QSATS", "HART2K", "HE4_MASS"]
@@ -282,14 +283,36 @@ class QSATS:
 
         return sweep
 
-    def sweeps(self, q0, draws, flags, step=0.5, mode="peratom"):
+    def sweeps(self, q0, draws, flags, step=0.5, mode="peratom", mesh=None):
         """Sweeps on given draws: ``draws`` the tuple of :meth:`draws` with
         ``exchange=True`` (its exchange draws read only where ``flags``,
         (nsweeps,) bools, is set), ``q0`` (nw, N, 3). Consecutive sweeps
         with the same flag run through one of two :class:`GraphScan`s,
         kept on the solver for the next call with this step and mode.
         Returns ((q, lp), e (nsweeps,), acc (nsweeps, nw), eacc
-        (nsweeps, nw))."""
+        (nsweeps, nw)). With ``mesh`` every rank passes the whole walkers
+        and draws and sweeps its equal shard (:meth:`run`); the energies
+        are averaged over the ranks and the rest gathered at the end."""
+        mesh = check_mesh(mesh)
+        if mesh is not None:
+            from ..parallel.mesh import (all_reduce_sum, axis_group,
+                                         gather_rows)
+            group, rank, d = axis_group(mesh)
+            nw = q0.shape[0]
+            if nw % d:
+                raise ValueError(f"QSATS: nwalkers={nw} does not divide over "
+                                 f"{d} ranks (equal shards keep the energy "
+                                 "means exact)")
+            lo, hi = rank * (nw // d), (rank + 1) * (nw // d)
+            (q, lp), e, acc, eacc = self.sweeps(
+                q0[lo:hi], tuple(t[:, lo:hi] for t in draws), flags, step,
+                mode)
+            if e is not None:
+                e = all_reduce_sum(e, group) / d
+                acc, eacc = (gather_rows(t, group, d, dim=1)
+                             for t in (acc, eacc))
+            return ((gather_rows(q, group, d), gather_rows(lp, group, d)),
+                    e, acc, eacc)
         q = self._q(q0)
         key = (step, mode)
         if key not in self._scans:
@@ -324,9 +347,14 @@ class QSATS:
         JAX package. ``key`` is an integer seed of a generator on the
         solver's device; ``q0`` optional (nwalkers, natoms, 3) restart
         configurations (a previous run's ``out['walkers']``, either
-        package's)."""
-        if mesh is not None:
-            raise not_yet_ported("QSATS.run(mesh=...)")
+        package's).
+
+        ``mesh`` (a DeviceMesh): the walkers are cut over its first axis in
+        equal shards (nwalkers must divide). Every rank draws the whole
+        start and draws from the generator of ``key`` and keeps its rows,
+        so the run equals the unsharded one draw for draw; the per-sweep
+        energies, means over equal shards, are averaged over the ranks and
+        the acceptances and walkers gathered, once at the end."""
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(int(key))
         if q0 is None:
@@ -348,7 +376,7 @@ class QSATS:
             draws = self.draws(gen, len(flags), nwalkers, mode,
                                exchange=bool(flags.any()))
             (q, _), e, acc, eacc = self.sweeps(state, draws, flags, step,
-                                               mode)
+                                               mode, mesh=mesh)
             state = q
             es.append(e)
             accs.append(acc)

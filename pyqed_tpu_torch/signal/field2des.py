@@ -24,8 +24,9 @@ import math
 import numpy as np
 import torch
 
-from ..config import complex_dtype_for, not_yet_ported
+from ..config import complex_dtype_for
 from ..ops.linalg import as_tensor
+from ..parallel.mesh import check_mesh
 
 
 def _three_pulse_field(t, E0, tau, omega, tc1, tc2, tc3, ph1, ph2):
@@ -58,14 +59,18 @@ def field_2des_rephasing(solver, rho0, mu, t1s, t2, nt3, dt,
     pad    : time before the first pulse centre (default 4 sigma)
     kernel : the solver's right-hand side (``einsum`` by default, as in
         the JAX package; ``cuda``/``pallas`` runs the coupling kernel).
-    mesh   : not yet ported (raises).
+    mesh   : a :class:`~torch.distributed.device_mesh.DeviceMesh`: the
+        (phase × t1) batch is cut over its first axis, each rank
+        propagating its members as one batch (with ``cuda``, one kernel
+        launch a right-hand side for them), with no collective until the
+        polarizations are gathered once for the phase-cycle sum. Every
+        rank returns the whole result.
 
     Returns (P3, t1s, t3s) as tensors on the solver's device: the
     phase-cycled third-order polarization P3[t1_idx, t3_idx] (complex),
     ready for :func:`rephasing_spectrum`, and the two time axes (float64).
     """
-    if mesh is not None:
-        raise not_yet_ported("field_2des_rephasing(mesh=...)")
+    mesh = check_mesh(mesh)
     if pad is None:
         pad = 4.0 * pulse_width
     dev = solver.device
@@ -85,6 +90,11 @@ def field_2des_rephasing(solver, rho0, mu, t1s, t2, nt3, dt,
     P1, P2, T1 = np.meshgrid(ph1, ph2, t1s, indexing="ij")
     bshape = P1.shape
     B = P1.size
+    lo, hi = 0, B
+    if mesh is not None:
+        from ..parallel.mesh import axis_group, gather_rows, local_range
+        group, rank, d = axis_group(mesh)
+        lo, hi, _ = local_range(B, rank, d)
 
     t1_max = float(t1s.max())
     tc1 = pad
@@ -100,7 +110,8 @@ def field_2des_rephasing(solver, rho0, mu, t1s, t2, nt3, dt,
     # field of every batch member at t = m dt / 2.
     tc3 = tc1 + t1_max + t2
     tc2 = tc3 - t2
-    col = lambda a: torch.as_tensor(a.ravel(), dtype=rdt, device=dev)
+    col = lambda a: torch.as_tensor(a.ravel()[lo:hi], dtype=rdt,  # noqa: E731
+                                    device=dev)
     t = (torch.arange(2 * nt_total + 1, dtype=rdt, device=dev)
          * (dt / 2))[:, None]
     fields = _three_pulse_field(t, E0, pulse_width, omega_c,
@@ -112,12 +123,12 @@ def field_2des_rephasing(solver, rho0, mu, t1s, t2, nt3, dt,
         out = rhs(y)
         return out.addcmul_(drive[m], mu @ y - y @ mu)
 
-    y = torch.zeros((nado, B, n, n), dtype=dtype, device=dev)
+    y = torch.zeros((nado, hi - lo, n, n), dtype=dtype, device=dev)
     y[0] = rho0.to(dtype)
     mu_t = mu.transpose(0, 1).contiguous()
-    pols = torch.empty((nt3, B), dtype=dtype, device=dev)
+    pols = torch.empty((nt3, hi - lo), dtype=dtype, device=dev)
     first = nt_total - nt3
-    for k in range(nt_total):
+    for k in range(nt_total if hi > lo else 0):
         k1 = f(y, 2 * k)
         k2 = f(y + k1 * (dt / 2), 2 * k + 1)
         k3 = f(y + k2 * (dt / 2), 2 * k + 1)
@@ -126,6 +137,8 @@ def field_2des_rephasing(solver, rho0, mu, t1s, t2, nt3, dt,
         if k >= first:
             # tr(mu @ rho_b) = sum_ij mu_ij rho_b[j, i]
             pols[k - first] = (y[0] * mu_t).sum(dim=(-2, -1))
+    if mesh is not None:
+        pols = gather_rows(pols, group, d, n=B, dim=1)
     pols = pols.T.reshape(bshape + (nt3,))
 
     # phase-cycle extraction of the (a, b) = (-1, +1) component:

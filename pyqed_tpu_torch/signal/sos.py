@@ -34,7 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import complex_dtype_for, not_yet_ported, resolve_device
+from ..config import complex_dtype_for, resolve_device
+from ..parallel.mesh import check_mesh
 from ..ops.math import heaviside, lorentzian
 from ..units import au2angstrom, au2mev, au2ev
 
@@ -313,9 +314,10 @@ def photon_echo_t2series(mol, pump, probe, t2list, g_idx=(0,), e_idx=None,
     """Photon-echo maps over population times t2, shape (len(t2list),
     len(pump), len(probe)): the pathway sum batched over t2 (the
     reference recomputes per delay in Python), one batched product for
-    the whole cube. ``mesh`` (pump-axis sharding) is not yet ported."""
-    if mesh is not None:
-        raise not_yet_ported("photon_echo_t2series(mesh=...)")
+    the whole cube. With ``mesh`` (a DeviceMesh) the pump axis (ω1) is
+    cut over its first axis: each rank computes its rows of the cube and
+    one all-gather joins them, so every rank returns the whole cube."""
+    mesh = check_mesh(mesh)
     dev = resolve_device(device)
     E, dip, gamma = _mol_operands(mol)
     N = mol.nstates
@@ -323,9 +325,17 @@ def photon_echo_t2series(mol, pump, probe, t2list, g_idx=(0,), e_idx=None,
         e_idx = list(range(N))
     if f_idx is None:
         f_idx = list(range(N))
-    return _photon_echo_cube(E, dip, -_real(pump, dev), _real(probe, dev),
-                             t2list, list(g_idx), list(e_idx), list(f_idx),
-                             gamma, dev)
+    w1 = -_real(pump, dev)
+    if mesh is None:
+        return _photon_echo_cube(E, dip, w1, _real(probe, dev), t2list,
+                                 list(g_idx), list(e_idx), list(f_idx),
+                                 gamma, dev)
+    from ..parallel.mesh import axis_group, gather_rows, local_range
+    group, rank, d = axis_group(mesh)
+    lo, hi, _ = local_range(w1.shape[0], rank, d)
+    S = _photon_echo_cube(E, dip, w1[lo:hi], _real(probe, dev), t2list,
+                          list(g_idx), list(e_idx), list(f_idx), gamma, dev)
+    return gather_rows(S, group, d, n=w1.shape[0], dim=1)
 
 
 def _ESA_t3(evals, dip, omega1, omega2, t3, g_idx, e_idx, f_idx, gamma,

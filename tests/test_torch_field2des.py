@@ -130,8 +130,10 @@ def test_no_third_pulse_cancels():
 
 
 def test_mesh_raises():
+    """mesh= takes a torch.distributed DeviceMesh (the sharded run is held
+    to JAX's in tests/test_torch_parallel.py) and refuses anything else."""
     _, ts, rho0, mu, t1s, nt3 = solvers("tls")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tf.field_2des_rephasing(ts, rho0, mu, t1s, nt3=nt3, mesh=object(),
                                 **PULSES)
 

@@ -386,7 +386,7 @@ def test_auto_kernel_on_cpu_is_einsum_and_launches_nothing():
 
 
 # ------------------------------------------------- not yet ported options
-STILL_UNPORTED = ("mesh", "run mesh", "levels-fast", "matmul-fast")
+STILL_UNPORTED = ("matmul-fast",)
 
 
 def _unported(case, tmp_path):
@@ -426,21 +426,33 @@ def _unported(case, tmp_path):
     "correlation_3op_2t", "liouvillian_dense", "steady_state", "propagator",
     "absorption", "HEOMSolverDrude"])
 def test_unported_options_raise(case, tmp_path):
-    """Sharded runs and the reduced-precision kernels still raise "not yet
-    ported". The other options of this list were ported with the driven
-    slice and now run: a checkpointed run, a resumed run and a zero drive
-    give the undriven run's rows exactly; correlations of identities are 1
-    (the hierarchy keeps the trace); the dense forms have the hierarchy's
-    size. Their parity with JAX is in tests/test_torch_heom_driven.py."""
+    """``matmul-fast``, no JAX kernel, still raises "not yet ported". The
+    other options of this list were ported and now run: a sharded solver
+    or run takes a torch.distributed DeviceMesh and refuses anything else
+    (the sharded runs themselves are held to JAX's and to the unsharded
+    ones in tests/test_torch_parallel.py); ``levels-fast`` is ``levels``
+    at complex128 (its parity with JAX's is test_levels_fast_matches_jax);
+    a checkpointed run, a resumed run and a zero drive give the undriven
+    run's rows exactly; correlations of identities are 1 (the hierarchy
+    keeps the trace); the dense forms have the hierarchy's size. Their
+    parity with JAX is in tests/test_torch_heom_driven.py."""
     call = _unported(case, tmp_path)
     if case in STILL_UNPORTED:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             call()
         return
+    if case in ("mesh", "run mesh"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            call()
+        return
     out = call()
     _, ts = small_solvers("projector")
     D = ts.rhs_fn(torch.complex128)[1] * 9
-    if case in ("checkpoint", "resume", "drive"):
+    if case == "levels-fast":
+        full = ts.run(np.diag([1.0, 0.0, 0.0]), dt=0.1, nt=2,
+                      kernel="levels")
+        assert torch.equal(out.states, full.states)
+    elif case in ("checkpoint", "resume", "drive"):
         full = ts.run(np.diag([1.0, 0.0, 0.0]), dt=0.1, nt=2)
         assert torch.equal(out.states, full.states[-len(out.states):])
     elif case.startswith("correlation"):
@@ -458,6 +470,21 @@ def test_unported_options_raise(case, tmp_path):
         assert out.shape == (2,) and np.isfinite(out).all()
     else:
         assert isinstance(out, HEOMSolverDrude) and out.device.type == "cpu"
+
+
+def test_levels_fast_matches_jax():
+    """JAX's ``levels-fast`` runs its levels form at Precision.DEFAULT,
+    which on the CPU in float64 gives the numbers of ``levels``; the
+    port's ``levels-fast`` is its ``levels``. Held at 1e-12."""
+    js, ts = small_solvers("dense")
+    rho0 = np.diag([1.0, 0.0, 0.0]).astype(complex)
+    e_ops = [np.diag([1.0, 0.0, 0.0]), np.diag([0.0, 0.0, 1.0])]
+    kw = dict(dt=0.02, nt=30, nout=3, e_ops=e_ops, kernel="levels-fast")
+    jr = js.run(rho0, **kw)
+    tr = ts.run(rho0, **kw)
+    for field in ("observables", "states", "rho"):
+        assert np.max(np.abs(getattr(tr, field).numpy()
+                             - np.asarray(getattr(jr, field)))) <= RTOL
 
 
 def test_unknown_kernel_raises():

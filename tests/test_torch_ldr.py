@@ -480,9 +480,10 @@ def test_entry_points_raise_without_card_and_mesh():
         tdvr.SineDVR(-1, 1, 5)
     with pytest.raises(RuntimeError, match="cuda"):
         trate.RateFluxSide(np.eye(3), np.arange(3.0))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # mesh= takes a DeviceMesh (sharded runs: tests/test_torch_distributed.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         LDRN(DOM, LEV, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_ldr(*model2d()[:2]).run(model2d()[2], dt=DT, nt=2,
                                      mesh=object())
 

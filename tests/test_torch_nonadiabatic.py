@@ -253,7 +253,8 @@ def test_tully_models_match_jax():
 
 def test_mesh_and_device_raise():
     sol = tfs.FSSH(tfs.tully_i(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # mesh= takes a DeviceMesh (sharded runs: tests/test_torch_distributed.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sol.run(np.zeros((2, 1)), np.ones((2, 1)), mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

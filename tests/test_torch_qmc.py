@@ -286,9 +286,10 @@ def test_dmc_run_harmonic_ground_state_and_device():
                         nequil=200, device="cpu")
     assert abs(float(E) - 1.5) < 0.05 and tr.shape == (600,)
     assert xf.shape == (2048, 3) and xf.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
+    # mesh= takes a DeviceMesh (sharded runs: tests/test_torch_distributed.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sol.run(0, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sol.run_sharded(0, None)
 
 
@@ -328,7 +329,7 @@ def test_pimc_run_thermal_energy():
     exact = 0.5 / np.tanh(beta / 2)
     assert abs(ev - exact) < 0.05 * exact and 0.2 < acc < 0.95
     assert paths.shape == (512, 32, 1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sol.run(0, mesh=object(), device="cpu")
 
 
@@ -412,7 +413,7 @@ def test_qsats_run_energy_and_errors():
                  exchange_prob=0.3)
     assert out["e_trace"].shape == (40,) and out["error"] >= 0.0
     assert 0.2 < out["acceptance"] < 0.95
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ts.run(0, mesh=object())
 
 

@@ -449,7 +449,9 @@ def test_etpa_with_port_biphoton_matches_jax(refs):
 
 
 def test_photon_echo_t2series_mesh_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Ported since: mesh= takes a DeviceMesh (the sharded cube is held to
+    JAX's in tests/test_torch_distributed.py) and refuses anything else."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsos.photon_echo_t2series(port_mol(), W, W, T2S, mesh=object(),
                                   **CPU)
 

@@ -489,10 +489,12 @@ def test_cuda_kernel_on_cpu_launches_nothing():
 
 
 def test_mesh_raises_not_yet_ported():
+    """Ported since: mesh= takes a DeviceMesh (sharded runs are held to
+    JAX's in tests/test_torch_parallel.py) and refuses anything else."""
     x = np.linspace(-1, 1, 8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pt.SPON([x], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pt.SPO3(x, x, x, mesh=object(), device="cpu")
 
 

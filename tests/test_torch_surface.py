@@ -20,11 +20,9 @@ REF = ROOT / "pyqed_tpu"
 PORT = ROOT / "pyqed_tpu_torch"
 PACKAGES = ("", "ops", "core", "open", "grid", "models", "signal", "utils",
             "floquet", "tn", "control", "qchem", "negf", "qmc", "md", "ml",
-            "beam")
+            "beam", "parallel")
 
-PARALLEL = "queue 1 item 6 (parallel/)"
-
-MISSING = {("", "parallel"): PARALLEL}
+MISSING = {}
 
 
 def _module_names(path):
