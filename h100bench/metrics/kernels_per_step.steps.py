@@ -1,0 +1,3 @@
+"""kernels_per_step.steps: device operations launched in the traced window per
+RK4 step, the host's work per step."""
+from harness.readers import kernels_per_step as read  # noqa: F401
