@@ -26,7 +26,8 @@ import torch
 
 from ..config import (complex_dtype_for, not_yet_ported, numpy_dtype_of,
                       resolve_device)
-from ..core.diagnostics import load_checkpoint, save_checkpoint
+from ..core.diagnostics import (load_checkpoint, save_checkpoint, span,
+                                spanned, spans_enabled)
 from ..core.dynamics import rk4_step
 from ..core.result import Result
 from ..ops import kernels as kn
@@ -133,20 +134,21 @@ class HEOMSolver:
     def __init__(self, H, bath=None, c_ops=None, e_ops=None, lmax: int = 4,
                  decomposition="matsubara", nexp: int = 1, kernel=None,
                  mesh=None, device=None):
-        self.mesh = check_mesh(mesh)
-        self.device = resolve_device(device)
-        self._H_np = _numpy(H)
-        self.H = torch.as_tensor(self._H_np, device=self.device)
-        self.n = self._H_np.shape[-1]
-        self.e_ops = e_ops
-        self.c_ops = c_ops
-        self.lmax = lmax
-        self.decomposition = decomposition
-        self.nexp = nexp
-        self.kernel = _kernel_name(kernel)
-        self._modes = None      # list of (Q, c, nu) over baths and terms
-        if bath is not None:
-            self.set_bath(bath)
+        with span("heom.init"):
+            self.mesh = check_mesh(mesh)
+            self.device = resolve_device(device)
+            self._H_np = _numpy(H)
+            self.H = torch.as_tensor(self._H_np, device=self.device)
+            self.n = self._H_np.shape[-1]
+            self.e_ops = e_ops
+            self.c_ops = c_ops
+            self.lmax = lmax
+            self.decomposition = decomposition
+            self.nexp = nexp
+            self.kernel = _kernel_name(kernel)
+            self._modes = None      # list of (Q, c, nu) over baths and terms
+            if bath is not None:
+                self.set_bath(bath)
 
     def set_bath(self, bath):
         if isinstance(bath, (list, tuple)):
@@ -211,9 +213,21 @@ class HEOMSolver:
         [lo, hi) (default all) of the right-hand side, rows past nado
         zero: a sharded run's rank calls it on its all-gathered stack for
         its own ADOs (every kernel; ``cuda`` launches once a call on those
-        destinations' edges)."""
+        destinations' edges).
+
+        With spans on (:mod:`..core.diagnostics`), the build is span
+        ``heom.build`` and each call of the closure span ``heom.rhs``."""
+        with span("heom.build"):
+            rhs, nado = self._rhs(dtype, kernel, edip, rows, nsrc)
+        if spans_enabled():
+            rhs = spanned("heom.rhs", rhs)
+        return rhs, nado
+
+    def _rhs(self, dtype, kernel, edip, rows, nsrc):
+        """:meth:`rhs_fn`'s host build."""
         kernel = _kernel_name(kernel) or self.kernel
-        keys, plus_idx, minus_idx, Q, c, nu = self._build(dtype)
+        with span("heom.build.hierarchy"):
+            keys, plus_idx, minus_idx, Q, c, nu = self._build(dtype)
         nado = keys.shape[0]
         lo, hi, nsrc = kn.rhs_rows(nado, rows, nsrc)
         sub = dict(rows=(lo, hi), nsrc=nsrc)
@@ -359,10 +373,26 @@ class HEOMSolver:
         RK4 step, as unsharded). The whole stack is gathered again only at
         the output windows and checkpoints, so every rank returns the
         same whole :class:`Result` as the unsharded run; rank 0 writes the
-        checkpoints."""
+        checkpoints.
+
+        With spans on (:mod:`..core.diagnostics`) the call is span
+        ``heom.run`` (attributes ``nt``, ``nout``, ``nado``, ``driven``),
+        each window of ``nout`` steps ``heom.window``, its row of states
+        and observables ``heom.observe``, and each host evaluation of
+        ``pulse`` ``heom.field``."""
         mesh = self.mesh if mesh is None else check_mesh(mesh)
         if edip is not None and pulse is None:
             raise ValueError("edip given without pulse")
+        with span("heom.run", nt=nt, nout=nout,
+                  driven=int(edip is not None)) as attrs:
+            return self._run(attrs, rho0, dt, nt, e_ops, nout, method,
+                             store_ados, mesh, kernel, checkpoint,
+                             checkpoint_every, resume, edip, pulse, t0)
+
+    def _run(self, attrs, rho0, dt, nt, e_ops, nout, method, store_ados,
+             mesh, kernel, checkpoint, checkpoint_every, resume, edip,
+             pulse, t0):
+        """:meth:`run`'s body; ``attrs`` are its span's."""
         if e_ops is None:
             e_ops = self.e_ops or []
         dev = self.device
@@ -391,13 +421,17 @@ class HEOMSolver:
 
             def full(y):
                 return gather_rows(y, group, d)[:nado]
+        attrs["nado"] = nado
 
         if edip is None:
             def f(y, t):
                 return rhs(y)
         else:
+            field = (spanned("heom.field", pulse) if spans_enabled()
+                     else pulse)
+
             def f(y, t):
-                return rhs(y, float(pulse(t)))
+                return rhs(y, float(field(t)))
 
         if method == "rk4":
             def step(y, t):
@@ -440,16 +474,18 @@ class HEOMSolver:
         y = local(ados0)
         whole = ados0
         for w in range(start, nwin):
-            for i in range(nout):
-                y = step(y, t0 + (w * nout + i) * dt)
-            row = w + 1 - start
-            whole = full(y)
-            states[row] = whole if store_ados else whole[0]
-            if obs is not None:
-                obs[row] = obs_of(whole)
-            if checkpoint is not None and (row % every == 0
-                                           or w + 1 == nwin):
-                self._save(mesh, checkpoint, w + 1, whole, dt, nout)
+            with span("heom.window"):
+                for i in range(nout):
+                    y = step(y, t0 + (w * nout + i) * dt)
+                row = w + 1 - start
+                with span("heom.observe"):
+                    whole = full(y)
+                    states[row] = whole if store_ados else whole[0]
+                    if obs is not None:
+                        obs[row] = obs_of(whole)
+                if checkpoint is not None and (row % every == 0
+                                               or w + 1 == nwin):
+                    self._save(mesh, checkpoint, w + 1, whole, dt, nout)
 
         times = (torch.arange(start, nwin + 1, dtype=torch.float64,
                               device=dev) * dt * nout)

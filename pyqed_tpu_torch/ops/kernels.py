@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ..config import real_dtype_of, resolve_device
+from ..core.diagnostics import span
 
 
 def to_tensor(a, dtype, device):
@@ -490,8 +491,10 @@ def heom_coupling_plan(nbr, w, nsrc=None):
     j: a block of the kernel stages OpT[j] once per tile and writes one
     partial row per edge, at the edge's slot. The slots put each
     destination's partials in consecutive rows, in ascending j: the block
-    that finishes a destination's last edge sums them in that order."""
+    that finishes a destination's last edge sums them in that order.
+    Each build is counted in ``heom_coupling_plan.builds``."""
     _check_graph(nbr, w)
+    heom_coupling_plan.builds += 1
     device, versions = nbr.device, (nbr._version, w._version)
     operands = (nbr, w)
     nbr, w = nbr.cpu().numpy(), w.cpu().numpy()
@@ -522,6 +525,8 @@ def heom_coupling_plan(nbr, w, nsrc=None):
                         w=to_tensor(w[dd, jj], operands[1].dtype, device),
                         edgeless=bool(np.any(deg == 0)), nsrc=nsrc)
 
+
+heom_coupling_plan.builds = 0
 
 _KERNEL_DTYPES = {torch.complex128: torch.float64,
                   torch.complex64: torch.float32}
@@ -687,7 +692,9 @@ def heom_coupling(F, nbr, w, OpT, plan=None):
     :func:`heom_coupling_ref`; on CUDA it launches one of the two kernels
     (counted in ``heom_coupling.launches``, one per right-hand side, so an
     RK4 run counts 4 per step; the destination-major launches also in
-    ``heom_coupling.batched_launches``) or raises; a hierarchy without
+    ``heom_coupling.batched_launches``; a plan's launch arguments, built
+    at its first launch at each (V, B, design), in
+    ``heom_coupling.launch_arg_builds``) or raises; a hierarchy without
     edges (one ADO) launches nothing and returns zeros. The kernel has no
     backward: on CUDA it raises when grad is enabled and F, w or OpT
     requires grad.
@@ -733,6 +740,7 @@ def _coupling_launch(F, OpT, plan, batched):
     args = plan.launch_args.get(key)
     if args is None:
         args = plan.launch_args[key] = _coupling_launch_args(plan, F, *key)
+        heom_coupling.launch_arg_builds += 1
     fn, addr, _, _ = args
     err = _launch_on(F.get_device(), lambda stream: fn(
         F.data_ptr(), OpT.data_ptr(), out.data_ptr(), addr, stream))
@@ -747,6 +755,7 @@ def _coupling_launch(F, OpT, plan, batched):
 
 heom_coupling.launches = 0
 heom_coupling.batched_launches = 0
+heom_coupling.launch_arg_builds = 0
 
 
 def drive_superop(edip):
@@ -774,7 +783,11 @@ def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     takes a stack of nsrc ADOs (a sharded run's all-gathered stack) and
     returns the rows [lo, hi) only: the kernel runs on those destinations'
     edges, with nbr indexing the whole stack (nsrc > nd), still one launch
-    a call."""
+    a call.
+
+    With spans on (:mod:`..core.diagnostics`) the operands and their
+    uploads are span ``heom.build.operands``, the plan
+    ``heom.build.plan``."""
     device = resolve_device(device)
     keys = np.asarray(keys)
     nado = keys.shape[0]
@@ -782,13 +795,16 @@ def heom_rhs_coupling_factory(H, Q, c, nu, keys, plus_idx, minus_idx, *,
     nd = hi - lo
     n = np.asarray(H).shape[-1]
     V = n * n
-    C, OpT, nbr, w = heom_coupling_operands(H, Q, c, keys, plus_idx,
-                                            minus_idx)
-    C_t = to_tensor(C, dtype, device)
-    OpT_t = to_tensor(OpT, dtype, device)
-    nbr_t = to_tensor(dest_rows(nbr, (lo, hi), -1), torch.int32, device)
-    w_t = to_tensor(dest_rows(w, (lo, hi), 0.0), real_dtype_of(dtype), device)
-    plan = heom_coupling_plan(nbr_t, w_t, nsrc)
+    with span("heom.build.operands"):
+        C, OpT, nbr, w = heom_coupling_operands(H, Q, c, keys, plus_idx,
+                                                minus_idx)
+        C_t = to_tensor(C, dtype, device)
+        OpT_t = to_tensor(OpT, dtype, device)
+        nbr_t = to_tensor(dest_rows(nbr, (lo, hi), -1), torch.int32, device)
+        w_t = to_tensor(dest_rows(w, (lo, hi), 0.0), real_dtype_of(dtype),
+                        device)
+    with span("heom.build.plan"):
+        plan = heom_coupling_plan(nbr_t, w_t, nsrc)
     # complex column (complex bath rates enter in full): addcmul_ below
     # needs the operands' dtype
     damp = to_tensor(dest_rows((keys @ np.asarray(nu))[:, None], (lo, hi), 0),

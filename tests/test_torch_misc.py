@@ -332,14 +332,30 @@ def test_diagnostics(tmp_path):
     with open(logdir / "trace.json") as f:
         assert "traceEvents" in json.load(f)
     assert any("aten::dot" in e.key for e in prof.key_averages())
-    timer = tdiag.StepTimer()
-    for _ in range(3):
-        with timer.step():
-            torch.ones(16).sum()
-    s = timer.summary()
-    assert s["steps"] == 3 and s["total_s"] >= s["mean_s"] > 0
-    assert tdiag.StepTimer().summary() == {"steps": 0}
-    assert tdiag.benchmark(torch.ones, 100, repeat=2) > 0
+    sol = pt.HEOMSolver(np.diag([0.0, 0.2]), bath=[
+        (np.diag([1.0, 0.0]), 0.02, 0.5)], lmax=1, kernel="cuda",
+        device="cpu")
+    with tdiag.trace(str(logdir)):
+        sol.run(np.diag([1.0, 0.0]), dt=0.05, nt=2, nout=1)
+    with open(logdir / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    (run,) = [e for e in events if e.get("name") == "heom.run"]
+    assert run["ph"] == "X" and run["dur"] > 0 and run["args"]["nado"] == 2
+    # the span lies on the profiler's clock: it covers the run's aten ops
+    ops = [e for e in events if e.get("ph") == "X"
+           and e.get("name", "").startswith("aten::einsum")]
+    assert ops and all(run["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                       <= run["ts"] + run["dur"] for e in ops)
+    # each counter rises from 0 to its change over the block: one plan;
+    # on CPU tensors the coupling's plain version launches nothing
+    counts = {}
+    for e in events:
+        if e.get("ph") == "C":
+            counts.setdefault(e["name"], []).append(e["args"]["value"])
+    assert counts["heom_coupling_plan.builds"] == [0, 1]
+    assert counts["heom_coupling.launches"] == [0, 0]
+    assert counts["heom_coupling.launch_arg_builds"] == [0, 0]
+    assert not tdiag.spans_enabled()
     good = {"a": torch.ones(3), "b": [np.zeros(2), (torch.zeros(1),)]}
     assert tdiag.check_finite(good) is good
     with pytest.raises(FloatingPointError, match="non-finite"):
